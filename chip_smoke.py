@@ -1,0 +1,370 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (zkm_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--profile]
+
+Phases (any failure exits nonzero):
+  1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
+     print the card's name and power limit;
+  2. each kernel against its plain PyTorch version on the card, bit for
+     bit (tolerance 0: everything is an integer mod p), with times;
+  3. segment-scale trace commits (rate 2, cap 4) of random traces shaped
+     like a hello segment's tables, and one cap checked against the CPU;
+  4. a 2^16-row Logic proof with its self-CTL under standard_fast_config,
+     verified by the port's verifier; the same statement at 2^10 rows
+     against the CPU digest; the frozen golden Logic proof;
+  5. only with --profile: where the time of a warm 2^16 Logic proof goes,
+     per-step times and device time per kernel name under torch.profiler.
+The line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "tests", "data", "golden_vectors.json")
+P = (1 << 64) - (1 << 32) + 1
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+INT32_LANES_PER_SM = 64          # Hopper SM: 64 INT32 lanes per clock
+
+# Hello-segment SPONGE_SUBSET shapes: (table, log2 rows, columns).  The two
+# Poseidon heights are assumed.
+SEGMENT_TABLES = [("Cpu", 16, 260), ("Memory", 19, 13), ("Arithmetic", 16, 54),
+                  ("Poseidon", 16, 262), ("PoseidonSponge", 16, 112),
+                  ("Logic", 16, 69)]
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def nvidia_smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+
+
+def random_field(rng, shape) -> np.ndarray:
+    return rng.integers(0, P, size=shape, dtype=np.uint64)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_abs_err(a: np.ndarray, b: np.ndarray) -> float:
+    bad = np.nonzero(a != b)
+    if not bad[0].size:
+        return 0.0
+    return float(max(abs(int(x) - int(y)) for x, y in zip(a[bad], b[bad])))
+
+
+def int32_ops_per_s() -> float:
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    return sms * INT32_LANES_PER_SM * mhz * 1e6
+
+
+def phase_build() -> dict:
+    from zkm_tpu_torch import native
+    t0 = time.perf_counter()
+    per_lib = native.build()
+    log(f"[build] {time.perf_counter() - t0:.1f} s for {sorted(per_lib)} "
+        f"(per library: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                      sorted(per_lib.items())) + ")")
+    log(nvidia_smi("name,power.limit"))
+    return per_lib
+
+
+def phase_kernels(rng, dev) -> dict:
+    """Each kernel against its plain version on the same card inputs."""
+    import torch
+    from zkm_tpu_torch.convert import from_u64, to_u64
+    from zkm_tpu_torch.field import goldilocks as gl
+    from zkm_tpu_torch.field import ntt
+    from zkm_tpu_torch.hash import poseidon as ps
+
+    rate = int32_ops_per_s()
+    out = {}
+
+    # K1 at the PoW grind's batch, plus the golden permutation vectors.
+    b = 1 << 16
+    states = from_u64(random_field(rng, (b, 12)), dev)
+    got = to_u64(ps.permute(states))
+    want = to_u64(ps._permute_plain(states))
+    err = max_abs_err(got, want)
+    with open(GOLDEN) as f:
+        golden = json.load(f)["poseidon_permute"]
+    gin = from_u64(np.array([[int(x) for x in c["input"]] for c in golden],
+                            dtype=np.uint64), dev)
+    gout = to_u64(ps.permute(gin))
+    golden_ok = all([str(int(x)) for x in gout[i]] == c["output"]
+                    for i, c in enumerate(golden))
+    ms = cuda_ms(lambda: ps.permute(states), reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: ps._permute_plain(states), reps=3)
+    ops_bound = ps.ops_per_permutation() * b / rate * 1e3
+    bytes_bound = 2 * 96 * b / HBM_BYTES_PER_S * 1e3
+    out["poseidon_permute"] = dict(
+        name="poseidon_permute", route="cuda",
+        source="zkm_tpu_torch/csrc/poseidon.cu",
+        replaces="zkm_tpu/ops/pallas_poseidon.py:104",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(ops_bound, bytes_bound),
+        bound_by="operations" if ops_bound >= bytes_bound else "bytes",
+        library_ms=None)
+    log(f"[kernels] K1 poseidon B={b}: max_abs_err {err} golden "
+        f"{'ok' if golden_ok else 'MISMATCH'}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {out['poseidon_permute']['bound_ms']:.4f} ms "
+        f"({ps.ops_per_permutation()} int32 ops/permutation at "
+        f"{rate / 1e12:.2f} Tops/s, an estimate)")
+    if err or not golden_ok:
+        raise AssertionError("K1 disagrees with its plain version")
+
+    # K2: intt -> lde at rate 2 on (69, 2^16), the Logic trace commit.
+    c, log_n, rate_bits = 69, 16, 2
+    n = 1 << log_n
+    values = from_u64(random_field(rng, (c, n)), dev)
+    n_inv = gl.host_inv(n)
+    shift_pw = ntt.shift_powers(n, gl.GENERATOR, False, values.device)
+
+    def kernel():
+        return ntt.lde(ntt.intt(values), rate_bits)
+
+    def plain():
+        coeffs = ntt._transform_plain(values, log_n, True, None, n_inv)
+        return ntt._transform_plain(coeffs, log_n + rate_bits, False,
+                                    shift_pw, 1)
+    got, want = to_u64(kernel()), to_u64(plain())
+    err = max_abs_err(got, want)
+    ms = cuda_ms(kernel, reps=10, warmup=2)
+    plain_ms = cuda_ms(plain, reps=2)
+    m = n << rate_bits
+    butterflies = c * (n // 2 * log_n + m // 2 * (log_n + rate_bits))
+    scale_muls = 2 * c * n
+    ops_bound = (butterflies * 36 + scale_muls * 26) / rate * 1e3
+    bytes_bound = 8 * c * (n + m) / HBM_BYTES_PER_S * 1e3
+    out["goldilocks_ntt"] = dict(
+        name="goldilocks_ntt", route="cuda",
+        source="zkm_tpu_torch/csrc/ntt.cu",
+        replaces="zkm_tpu/field/ntt.py:83",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        bound_ms=max(ops_bound, bytes_bound),
+        bound_by="operations" if ops_bound >= bytes_bound else "bytes",
+        library_ms=None)
+    log(f"[kernels] K2 ntt intt->lde (69, 2^16) rate 2: max_abs_err {err}; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.2f} ms, bound "
+        f"{out['goldilocks_ntt']['bound_ms']:.4f} ms")
+    if err:
+        raise AssertionError("K2 disagrees with its plain version")
+    return out
+
+
+def phase_commits(rng, dev) -> None:
+    import torch
+    from zkm_tpu_torch.commit.polynomial_batch import PolynomialBatch
+    from zkm_tpu_torch.convert import from_u64
+    from zkm_tpu_torch.field import ntt
+    from zkm_tpu_torch.hash import poseidon as ps
+
+    for name, log_n, cols in SEGMENT_TABLES:
+        values = from_u64(random_field(rng, (cols, 1 << log_n)), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1, k2 = ps.LAUNCHES, ntt.LAUNCHES
+        t0 = time.perf_counter()
+        batch = PolynomialBatch.from_values(values, 2, 4, device=dev)
+        cap = batch.cap_u64()
+        ms = (time.perf_counter() - t0) * 1e3
+        assert cap.shape == (16, 4) and (cap < P).all()
+        log(f"[commit] {name:14s} ({cols}, 2^{log_n}): {ms:9.2f} ms, "
+            f"K1 launches {ps.LAUNCHES - k1}, K2 launches "
+            f"{ntt.LAUNCHES - k2}, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del batch, values
+    small = random_field(rng, (69, 1 << 12))
+    gpu = PolynomialBatch.from_values(from_u64(small), 2, 4, device=dev)
+    cpu = PolynomialBatch.from_values(from_u64(small), 2, 4, device="cpu")
+    same = np.array_equal(gpu.cap_u64(), cpu.cap_u64())
+    log(f"[commit] (69, 2^12) cap on the card == CPU path: {same}")
+    if not same:
+        raise AssertionError("card and CPU commitments differ")
+
+
+def _logic_statement(rng, log_rows: int):
+    from zkm_tpu_torch.stark.cross_table_lookup import (CrossTableLookup,
+                                                        TableWithColumns)
+    from zkm_tpu_torch.stark.proof import MemRoots, PublicValues
+    from zkm_tpu_torch.tables import logic
+    k = 1 << log_rows
+    ops = np.stack([rng.integers(0, 4, k), rng.integers(0, 1 << 32, k),
+                    rng.integers(0, 1 << 32, k)], axis=1)
+    cols, filt = tuple(logic.ctl_data()), logic.ctl_filter()
+    ctls = [CrossTableLookup((TableWithColumns(0, cols, filt),),
+                             TableWithColumns(0, cols, filt))]
+    pv = PublicValues(MemRoots.from_image_id(bytes(range(32))),
+                      MemRoots.from_image_id(bytes(range(32, 64))), bytes(32))
+    return logic.generate_rows(ops, min_rows=64), ctls, pv
+
+
+def _prove(rows, ctls, pv, config, device, timer=None):
+    from zkm_tpu_torch.convert import traces_from_rows
+    from zkm_tpu_torch.stark.prover import prove_with_traces
+    from zkm_tpu_torch.tables import logic
+    return prove_with_traces([logic.LogicStark()], config,
+                             traces_from_rows([rows], device), ctls, pv,
+                             device=device, timer=timer)
+
+
+def phase_proof(rng, dev) -> dict:
+    import torch
+    from zkm_tpu_torch.field import ntt
+    from zkm_tpu_torch.hash import poseidon as ps
+    from zkm_tpu_torch.stark.config import StarkConfig
+    from zkm_tpu_torch.stark.cross_table_lookup import (CrossTableLookup,
+                                                        TableWithColumns)
+    from zkm_tpu_torch.stark.proof import (MemRoots, PublicValues,
+                                           flat_sha256, flatten_proof)
+    from zkm_tpu_torch.stark.verifier import verify_proof
+    from zkm_tpu_torch.tables import logic
+    from zkm_tpu_torch.utils.timing import StepTimer
+
+    config = StarkConfig.standard_fast_config()
+    rows, ctls, pv = _logic_statement(rng, 16)
+
+    # The main path: counts set to 0 just before, read just after.
+    ps.LAUNCHES = 0
+    ntt.LAUNCHES = 0
+    timer = StepTimer(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proof = _prove(rows, ctls, pv, config, dev, timer)
+    total = time.perf_counter() - t0
+    launches = {"poseidon_permute": ps.LAUNCHES,
+                "goldilocks_ntt": ntt.LAUNCHES}
+    steps = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.seconds.items())
+    log(f"[proof] Logic 2^16 standard_fast_config on the card: {total:.3f} s "
+        f"({steps}); launches {launches}")
+    digest = flat_sha256(flatten_proof(proof))
+    t0 = time.perf_counter()
+    verify_proof([logic.LogicStark()], proof, ctls, config)
+    log(f"[proof] verified by the port's verifier in "
+        f"{time.perf_counter() - t0:.1f} s; flattened sha256 {digest}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+
+    rows, ctls, pv = _logic_statement(rng, 10)
+    d_gpu = flat_sha256(flatten_proof(_prove(rows, ctls, pv, config, dev)))
+    d_cpu = flat_sha256(flatten_proof(_prove(rows, ctls, pv, config, "cpu")))
+    log(f"[proof] Logic 2^10 digest card {d_gpu} == CPU {d_cpu}: "
+        f"{d_gpu == d_cpu}")
+    if d_gpu != d_cpu:
+        raise AssertionError("card and CPU proofs differ")
+
+    with open(GOLDEN) as f:
+        v = json.load(f)["logic_proof"]
+    cols, filt = tuple(logic.ctl_data()), logic.ctl_filter()
+    ctls = [CrossTableLookup((TableWithColumns(0, cols, filt),),
+                             TableWithColumns(0, cols, filt))]
+    pv = PublicValues(MemRoots.from_image_id(bytes([3] * 32)),
+                      MemRoots.from_image_id(bytes([4] * 32)), bytes(32))
+    rows = logic.generate_rows([tuple(o) for o in v["ops"]], min_rows=16)
+    golden = flat_sha256(flatten_proof(_prove(
+        rows, ctls, pv, StarkConfig.test_config(), dev)))
+    log(f"[proof] frozen logic_proof on the card: {golden == v['sha256_flat']}")
+    if golden != v["sha256_flat"]:
+        raise AssertionError("frozen logic_proof does not reproduce")
+    return launches
+
+
+def phase_profile(rng, dev) -> None:
+    """Where the time of a warm 2^16 Logic proof goes: per-step times of
+    one warm run, then device time per kernel name from torch.profiler in
+    another, with the device-busy share of its wall time (the profiler's
+    own overhead is part of that wall)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from zkm_tpu_torch.stark.config import StarkConfig
+    from zkm_tpu_torch.utils.timing import StepTimer
+
+    rows, ctls, pv = _logic_statement(rng, 16)
+    config = StarkConfig.standard_fast_config()
+    timer = StepTimer(dev)
+    t0 = time.perf_counter()
+    _prove(rows, ctls, pv, config, dev, timer)
+    steps = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.seconds.items())
+    log(f"[profile] warm Logic 2^16 proof: {time.perf_counter() - t0:.3f} s "
+        f"({steps})")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _prove(rows, ctls, pv, config, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows_out = []
+    for e in prof.key_averages():
+        # kernels and copies only: an aten op's own entry repeats the
+        # device time of the kernels it launched
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total:
+            rows_out.append((e.self_device_time_total, e.count, e.key))
+    rows_out.sort(reverse=True)
+    device_us = sum(r[0] for r in rows_out)
+    log(f"[profile] warm Logic 2^16 proof under the profiler: wall "
+        f"{wall * 1e3:.1f} ms, device time {device_us / 1e3:.1f} ms "
+        f"(busy share {device_us / 1e4 / wall:.1f}%), "
+        f"{sum(r[1] for r in rows_out)} kernels and copies")
+    for us, count, key in rows_out[:15]:
+        log(f"[profile] {us / 1e3:9.2f} ms {count:7d}x {key[:90]}")
+
+
+def main() -> int:
+    import argparse
+    import torch
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="also profile a warm 2^16 Logic proof")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    phase_build()
+    kernels = phase_kernels(rng, dev)
+    phase_commits(rng, dev)
+    launches = phase_proof(rng, dev)
+    if args.profile:
+        phase_profile(rng, dev)
+    for name, k in kernels.items():
+        k["launches"] = launches[name]
+    log(json.dumps({"kernels": list(kernels.values())}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

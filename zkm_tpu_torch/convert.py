@@ -1,0 +1,85 @@
+"""Carrying values between numpy u64 arrays, int64 tensors and plain data.
+
+A Goldilocks element is a u64; the port carries its bit pattern in an
+int64 tensor, so conversion is a `view` and copies nothing on the host.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from .field.goldilocks import P
+
+
+def from_u64(x, device=None) -> torch.Tensor:
+    """numpy/python u64 values -> canonical int64 tensor (CPU unless a
+    device is given)."""
+    arr = np.ascontiguousarray(np.asarray(x, dtype=np.uint64) % np.uint64(P))
+    return torch.from_numpy(arr.view(np.int64)).to(device)
+
+
+def to_u64(t: torch.Tensor) -> np.ndarray:
+    """int64 tensor -> host numpy u64 array with the same bits."""
+    return t.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def traces_from_rows(rows: List[np.ndarray], device) -> List[torch.Tensor]:
+    """Per-table (C, N) u64 arrays, as the reference's
+    `tables/*.generate_rows(...)` give them, -> traces on `device`."""
+    return [from_u64(r, device) for r in rows]
+
+
+def proof_to_plain(all_proof) -> dict:
+    """An `AllProof` as nested dicts, lists, python ints and numpy u64
+    arrays, every array in the reference's field order."""
+    def u64(a):
+        return np.asarray(a, dtype=np.uint64).copy()
+
+    def fri(fp):
+        return {
+            "commit_phase_merkle_caps": [u64(c) for c in
+                                         fp.commit_phase_merkle_caps],
+            "query_round_proofs": [{
+                "initial_trees_proof": {
+                    "evals_per_oracle": [u64(e) for e in
+                                         qr.initial_trees_proof.evals_per_oracle],
+                    "merkle_proofs": [[u64(s) for s in sibs] for sibs in
+                                      qr.initial_trees_proof.merkle_proofs]},
+                "steps": [{"evals": u64(st.evals),
+                           "merkle_proof": [u64(s) for s in st.merkle_proof]}
+                          for st in qr.steps]}
+                for qr in fp.query_round_proofs],
+            "final_poly": u64(fp.final_poly),
+            "pow_witness": int(fp.pow_witness),
+        }
+
+    tables = []
+    for pm in all_proof.stark_proofs:
+        pr, op = pm.proof, pm.proof.openings
+        tables.append({
+            "init_challenger_state": [int(v) for v in
+                                      pm.init_challenger_state],
+            "degree_bits": int(pm.degree_bits),
+            "proof": {
+                "trace_cap": u64(pr.trace_cap),
+                "auxiliary_polys_cap": u64(pr.auxiliary_polys_cap),
+                "quotient_polys_cap": u64(pr.quotient_polys_cap),
+                "openings": {k: u64(getattr(op, k)) for k in (
+                    "local_values", "next_values", "auxiliary_polys",
+                    "auxiliary_polys_next", "ctl_zs_first",
+                    "quotient_polys")},
+                "opening_proof": fri(pr.opening_proof),
+            }})
+    pv = all_proof.public_values
+    return {
+        "stark_proofs": tables,
+        "ctl_challenges": [(int(c.beta), int(c.gamma))
+                           for c in all_proof.ctl_challenges.challenges],
+        "public_values": {"roots_before": [int(v) for v in
+                                           pv.roots_before.root],
+                          "roots_after": [int(v) for v in pv.roots_after.root],
+                          "userdata": bytes(pv.userdata)},
+    }

@@ -1,0 +1,181 @@
+"""Number-theoretic transforms (radix-2) over Goldilocks, batched.
+
+Counterpart of `zkm_tpu/field/ntt.py`.  A batch of polynomials is an int64
+tensor (..., N) with the coefficient/evaluation axis last.  Subgroup
+convention matches plonky2: the size-N subgroup is generated by
+POWER_OF_TWO_GENERATOR^(2^(32 - log2 N)); cosets are shifted by the
+multiplicative generator g = 7.
+
+Every transform is one call of `transform` (`coset_intt` then scales its
+output by the shift's inverse powers):
+    out = NTT_N(zero_pad(x) * scale) * factor
+with decimation in time (bit-reversed input order, natural output).  On a
+CUDA tensor that is kernel K2 (`csrc/ntt.cu`); on a CPU tensor it is the
+plain version `_transform_plain`, which does the same arithmetic.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Optional
+
+import torch
+
+from .. import native
+from . import goldilocks as gl
+
+
+# K2's launch count: every kernel launch below adds one.
+LAUNCHES = 0
+
+
+@lru_cache(maxsize=64)
+def bit_reverse_tensor(log_n: int, device: torch.device) -> torch.Tensor:
+    """rev[i] = i with its log_n bits reversed, built on `device` by
+    doubling: rev_{k+1} = [2 rev_k, 2 rev_k + 1]."""
+    rev = torch.zeros(1, dtype=torch.int64, device=device)
+    for _ in range(log_n):
+        rev = torch.cat([2 * rev, 2 * rev + 1])
+    return rev
+
+
+@lru_cache(maxsize=64)
+def twiddles(log_n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """All stages' twiddles in one table, built on `device`: tw[m + k] =
+    w_{2m}^k for the stage of half-size m (w inverted for the inverse
+    transform)."""
+    n = 1 << log_n
+    tw = torch.ones(max(n, 1), dtype=torch.int64, device=device)
+    if log_n:
+        root = gl.primitive_root_of_unity(log_n)
+        if inverse:
+            root = gl.host_inv(root)
+        pw = gl.powers(root, n // 2, device)
+        m = 1
+        while m < n:
+            tw[m:2 * m] = pw[::n // (2 * m)][:m]
+            m *= 2
+    return tw
+
+
+@lru_cache(maxsize=64)
+def shift_powers(n: int, shift: int, invert: bool,
+                 device: torch.device) -> torch.Tensor:
+    if invert:
+        shift = gl.host_inv(shift)
+    return gl.powers(shift, n, device)
+
+
+def _transform_plain(x: torch.Tensor, log_n: int, inverse: bool,
+                     scale: Optional[torch.Tensor], factor: int) -> torch.Tensor:
+    """Plain-torch version of K2 on (rows, n_in) -> (rows, 2^log_n)."""
+    rows, n_in = x.shape
+    n = 1 << log_n
+    v = x
+    if scale is not None:
+        v = gl.mul(v, scale[:n_in])
+    if factor != 1:
+        v = gl.mul(v, factor)
+    if n_in < n:
+        v = torch.cat([v, v.new_zeros(rows, n - n_in)], dim=1)
+    v = v.index_select(1, bit_reverse_tensor(log_n, x.device))
+    tw = twiddles(log_n, inverse, x.device)
+    for s in range(1, log_n + 1):
+        m = 1 << (s - 1)
+        v = v.view(rows, n // (2 * m), 2, m)
+        a = v[:, :, 0]
+        b = gl.mul(v[:, :, 1], tw[m:2 * m])
+        v = torch.stack([gl.add(a, b), gl.sub(a, b)], dim=2).view(rows, n)
+    return v
+
+
+def _transform_cuda(x: torch.Tensor, log_n: int, inverse: bool,
+                    scale: Optional[torch.Tensor], factor: int) -> torch.Tensor:
+    global LAUNCHES
+    lib = native.library("ntt")
+    rows, n_in = x.shape
+    x = x.contiguous()
+    out = torch.empty((rows, 1 << log_n), dtype=torch.int64, device=x.device)
+    if scale is not None:
+        _check_table(scale, x, n_in)
+        scale = scale.contiguous()
+    stream = native.stream_ptr(x.device)
+    native.check(lib, lib.zkm_ntt_bitrev_scale(
+        x.data_ptr(), out.data_ptr(),
+        scale.data_ptr() if scale is not None else None,
+        factor % gl.P, rows, n_in, log_n, stream), "ntt bitrev_scale")
+    LAUNCHES += 1
+    tw = twiddles(log_n, inverse, x.device)
+    for s in range(1, log_n + 1):
+        native.check(lib, lib.zkm_ntt_stage(
+            out.data_ptr(), tw.data_ptr(), rows, log_n, s, stream),
+            "ntt stage")
+        LAUNCHES += 1
+    return out
+
+
+def _check_table(tab: torch.Tensor, x: torch.Tensor, n: int) -> None:
+    if tab.dtype != torch.int64 or tab.device != x.device or tab.numel() < n:
+        raise ValueError(f"table must be int64 on {x.device} with >= {n} "
+                         f"values, got {tab.dtype} on {tab.device}, "
+                         f"{tab.numel()} values")
+
+
+def transform(x: torch.Tensor, log_n: int, inverse: bool = False,
+              scale: Optional[torch.Tensor] = None,
+              factor: int = 1) -> torch.Tensor:
+    """NTT_N(zero_pad(x) * scale) * factor over the last axis, N = 2^log_n.
+
+    x: (..., n_in) with n_in <= N; scale indexes x's (natural) order."""
+    if x.dtype != torch.int64:
+        raise TypeError(f"expected an int64 tensor, got {x.dtype}")
+    lead, n_in = x.shape[:-1], x.shape[-1]
+    if n_in > (1 << log_n):
+        raise ValueError(f"{n_in} values do not fit a size-2^{log_n} NTT")
+    x2 = x.reshape(-1, n_in)
+    if x.is_cuda:
+        out = _transform_cuda(x2, log_n, inverse, scale, factor)
+    elif x.device.type == "cpu":
+        out = _transform_plain(x2, log_n, inverse, scale, factor)
+    else:
+        raise ValueError(f"unsupported device {x.device}")
+    return out.view(*lead, 1 << log_n)
+
+
+def _log2(n: int) -> int:
+    assert n & (n - 1) == 0 and n > 0, n
+    return n.bit_length() - 1
+
+
+def ntt(coeffs: torch.Tensor) -> torch.Tensor:
+    """Coefficients -> evaluations over the subgroup (natural order)."""
+    return transform(coeffs, _log2(coeffs.shape[-1]))
+
+
+def intt(evals: torch.Tensor) -> torch.Tensor:
+    """Evaluations -> coefficients."""
+    n = evals.shape[-1]
+    return transform(evals, _log2(n), inverse=True, factor=gl.host_inv(n))
+
+
+def coset_ntt(coeffs: torch.Tensor, shift: int = gl.GENERATOR) -> torch.Tensor:
+    """Evaluate p(shift * x) over the subgroup."""
+    n = coeffs.shape[-1]
+    return transform(coeffs, _log2(n),
+                     scale=shift_powers(n, shift, False, coeffs.device))
+
+
+def coset_intt(evals: torch.Tensor, shift: int = gl.GENERATOR) -> torch.Tensor:
+    """Inverse of coset_ntt: the shift's inverse powers scale the output,
+    which `transform` does not do, so that multiply stays plain torch."""
+    n = evals.shape[-1]
+    return gl.mul(intt(evals), shift_powers(n, shift, True, evals.device))
+
+
+def lde(coeffs: torch.Tensor, rate_bits: int,
+        shift: int = gl.GENERATOR) -> torch.Tensor:
+    """Low-degree extension: zero-pad coeffs by 2^rate_bits and evaluate on
+    shift * <subgroup of size N * 2^rate> (natural order)."""
+    n = coeffs.shape[-1]
+    return transform(coeffs, _log2(n) + rate_bits,
+                     scale=shift_powers(n, shift, False, coeffs.device))

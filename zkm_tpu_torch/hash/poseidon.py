@@ -1,0 +1,219 @@
+"""Poseidon permutation and plonky2-style hashing over Goldilocks, batched.
+
+Counterpart of `zkm_tpu/hash/poseidon.py` (the Merkle/challenger half; the
+emulator's byte sponge is not part of the port yet).  A batch of states is
+an int64 tensor (..., 12).  `permute` runs kernel K1 (`csrc/poseidon.cu`)
+for a CUDA tensor and the plain version `_permute_plain` for a CPU tensor;
+every other function here is built on `permute`.  The naive partial-round
+evaluation is used: mathematically identical to plonky2's fast partial
+rounds.
+"""
+
+from __future__ import annotations
+
+import threading
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .. import native
+from ..field import goldilocks as gl
+from . import poseidon_constants as C
+
+SPONGE_RATE = C.SPONGE_RATE       # 8 field elements
+SPONGE_WIDTH = C.SPONGE_WIDTH     # 12
+DIGEST = 4                        # hash output = 4 field elements
+
+_RC = np.array(C.ALL_ROUND_CONSTANTS, dtype=np.uint64).reshape(C.N_ROUNDS, 12)
+_MDS_IDX = (np.arange(12)[:, None] + np.arange(12)[None, :]) % 12
+_MDS_DIAG0 = C.MDS_MATRIX_DIAG[0]   # only row 0 has a diagonal term
+
+# K1's launch count: every kernel launch adds one.
+LAUNCHES = 0
+
+_init_lock = threading.Lock()
+_initialized_devices = set()
+
+
+@lru_cache(maxsize=16)
+def _tables(device: torch.device):
+    return (torch.from_numpy(_RC.view(np.int64)).to(device),
+            torch.from_numpy(_MDS_IDX).to(device),
+            torch.tensor(C.MDS_MATRIX_CIRC, dtype=torch.int64, device=device))
+
+
+def _sbox(x: torch.Tensor) -> torch.Tensor:
+    """x^7 (4 field muls)."""
+    x2 = gl.square(x)
+    x4 = gl.square(x2)
+    return gl.mul(gl.mul(x4, x2), x)
+
+
+def _mds_plain(s: torch.Tensor, idx: torch.Tensor,
+               circ: torch.Tensor) -> torch.Tensor:
+    """out[r] = sum_i CIRC[i] * s[(r+i)%12] (+ diag at r=0): exact int64
+    sums of the 32-bit halves (< 2^41 each), recombined into 128 bits."""
+    lo, hi = s & gl.MASK32, gl._shr(s, 32)
+    acc_lo = (lo[..., idx] * circ).sum(-1)
+    acc_hi = (hi[..., idx] * circ).sum(-1)
+    acc_lo[..., 0] += _MDS_DIAG0 * lo[..., 0]
+    acc_hi[..., 0] += _MDS_DIAG0 * hi[..., 0]
+    lo64 = acc_lo + acc_hi * (1 << 32)
+    hi64 = gl._shr(acc_hi, 32) + gl._ult(lo64, acc_lo).to(torch.int64)
+    return gl._reduce128(lo64, hi64)
+
+
+def _permute_plain(state: torch.Tensor) -> torch.Tensor:
+    """Plain-torch version of K1: the 30-round permutation on (..., 12)."""
+    rc, idx, circ = _tables(state.device)
+    h, p = C.HALF_N_FULL_ROUNDS, C.N_PARTIAL_ROUNDS
+    s = state
+    for r in range(C.N_ROUNDS):
+        s = gl.add(s, rc[r])
+        if h <= r < h + p:
+            s = torch.cat([_sbox(s[..., :1]), s[..., 1:]], dim=-1)
+        else:
+            s = _sbox(s)
+        s = _mds_plain(s, idx, circ)
+    return s
+
+
+def _permute_cuda(state: torch.Tensor) -> torch.Tensor:
+    global LAUNCHES
+    lib = native.library("poseidon")
+    dev = state.device.index if state.device.index is not None \
+        else torch.cuda.current_device()
+    with _init_lock:
+        if dev not in _initialized_devices:
+            with torch.cuda.device(dev):
+                native.check(lib, lib.zkm_poseidon_init(_RC.ctypes.data),
+                             "poseidon round constants")
+            _initialized_devices.add(dev)
+    flat = state.reshape(-1, SPONGE_WIDTH).contiguous()
+    out = torch.empty_like(flat)
+    native.check(lib, lib.zkm_poseidon_permute(
+        flat.data_ptr(), out.data_ptr(), flat.shape[0],
+        native.stream_ptr(state.device)), "poseidon permute")
+    LAUNCHES += 1
+    return out.view(state.shape)
+
+
+def permute(state: torch.Tensor) -> torch.Tensor:
+    """The full 30-round Poseidon permutation on (..., 12) states."""
+    if state.dtype != torch.int64 or state.shape[-1] != SPONGE_WIDTH:
+        raise ValueError(f"expected (..., 12) int64 states, got "
+                         f"{tuple(state.shape)} {state.dtype}")
+    if state.is_cuda:
+        return _permute_cuda(state)
+    if state.device.type == "cpu":
+        return _permute_plain(state)
+    raise ValueError(f"unsupported device {state.device}")
+
+
+def ops_per_permutation() -> int:
+    """K1's 32-bit integer operations per permutation (source estimate)."""
+    return native.library("poseidon").zkm_poseidon_ops_per_permutation()
+
+
+# ---------------------------------------------------------------------------
+# plonky2-style hashing (overwrite-mode sponge, no padding).
+# ---------------------------------------------------------------------------
+
+def hash_n_to_m_no_pad(inputs: torch.Tensor, num_outputs: int) -> torch.Tensor:
+    """inputs (..., n) -> (..., num_outputs): absorb 8 at a time by
+    overwriting the rate, permuting after each chunk; squeeze from the
+    first 8 state elements."""
+    n = inputs.shape[-1]
+    state = torch.zeros(inputs.shape[:-1] + (SPONGE_WIDTH,),
+                        dtype=torch.int64, device=inputs.device)
+    for start in range(0, n, SPONGE_RATE):
+        end = min(start + SPONGE_RATE, n)
+        state[..., :end - start] = inputs[..., start:end]
+        state = permute(state)
+    outs = []
+    produced = 0
+    while True:
+        take = min(SPONGE_RATE, num_outputs - produced)
+        outs.append(state[..., :take])
+        produced += take
+        if produced == num_outputs:
+            break
+        state = permute(state)
+    return torch.cat(outs, dim=-1)
+
+
+def hash_no_pad(inputs: torch.Tensor) -> torch.Tensor:
+    return hash_n_to_m_no_pad(inputs, DIGEST)
+
+
+def hash_or_noop(inputs: torch.Tensor) -> torch.Tensor:
+    """(..., n) -> (..., 4): zero-padded identity if n <= 4, else hash."""
+    n = inputs.shape[-1]
+    if n <= DIGEST:
+        pad = inputs.new_zeros(inputs.shape[:-1] + (DIGEST - n,))
+        return torch.cat([inputs, pad], dim=-1)
+    return hash_no_pad(inputs)
+
+
+def two_to_one(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
+    """Compress two (..., 4) digests into one (one permute)."""
+    cap = left.new_zeros(left.shape[:-1] + (SPONGE_WIDTH - 2 * DIGEST,))
+    return permute(torch.cat([left, right, cap], dim=-1))[..., :DIGEST]
+
+
+# ---------------------------------------------------------------------------
+# Pure-python permutation (host transcript path), copied from the reference.
+# ---------------------------------------------------------------------------
+
+_P = gl.P
+_RC_INT = [[int(x) for x in row] for row in _RC]
+_MDS_CIRC_INT = list(C.MDS_MATRIX_CIRC)
+_MDS_DIAG0_INT = C.MDS_MATRIX_DIAG[0]
+
+
+def permute_host(state):
+    """[12 ints] -> [12 ints]; same permutation as `permute`."""
+    s = [int(x) for x in state]
+    for r in range(C.N_ROUNDS):
+        rc = _RC_INT[r]
+        is_full = r < C.HALF_N_FULL_ROUNDS or \
+            r >= C.HALF_N_FULL_ROUNDS + C.N_PARTIAL_ROUNDS
+        s = [(v + rc[i]) % _P for i, v in enumerate(s)]
+        if is_full:
+            s = [pow(v, 7, _P) for v in s]
+        else:
+            s[0] = pow(s[0], 7, _P)
+        out = []
+        for row in range(12):
+            acc = 0
+            for i in range(12):
+                acc += _MDS_CIRC_INT[i] * s[(i + row) % 12]
+            if row == 0:
+                acc += _MDS_DIAG0_INT * s[0]
+            out.append(acc % _P)
+        s = out
+    return s
+
+
+def hash_no_pad_host(values):
+    """[ints] -> 4-int digest (plonky2 hash_n_to_hash_no_pad, host)."""
+    state = [0] * SPONGE_WIDTH
+    vals = [int(v) for v in values]
+    for start in range(0, len(vals), SPONGE_RATE):
+        chunk = vals[start:start + SPONGE_RATE]
+        state[:len(chunk)] = chunk
+        state = permute_host(state)
+    return state[:DIGEST]
+
+
+def hash_or_noop_host(values):
+    vals = [int(v) for v in values]
+    if len(vals) <= DIGEST:
+        return vals + [0] * (DIGEST - len(vals))
+    return hash_no_pad_host(vals)
+
+
+def two_to_one_host(left, right):
+    state = [int(x) for x in left] + [int(x) for x in right] + [0, 0, 0, 0]
+    return permute_host(state)[:DIGEST]

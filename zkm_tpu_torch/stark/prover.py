@@ -1,0 +1,265 @@
+"""Multi-table STARK prover.
+
+Counterpart of `zkm_tpu/stark/prover.py` (zkMIPS prover/src/prover.rs).
+The transcript discipline is mirrored exactly: one host challenger for the
+whole AllProof; order = all trace caps -> public values -> CTL challenge
+set -> per table (in table order): compact state -> aux cap -> alphas ->
+quotient cap -> zeta -> openings -> FRI.
+
+  * quotient constraints evaluate over the whole 2n-point coset at once,
+    as a level schedule of tensor ops (stark/expr.py);
+  * Z_H on the coset takes only two values (g^n (-1)^i - 1), so the
+    division is two constant inversions;
+  * trace/aux quotient-domain values come from rate-1 coset LDEs of the
+    committed coefficients; the next-row view on the 2n coset is a roll
+    by 2.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import List, Sequence
+
+import torch
+
+from ..commit.polynomial_batch import PolynomialBatch
+from ..device import resolve_device
+from ..field import extension as gl2
+from ..field import goldilocks as gl
+from ..field import ntt
+from ..fri import oracle as fri_oracle
+from ..iop.challenger import Challenger
+from ..utils.timing import step
+from .config import StarkConfig
+from .cross_table_lookup import (cross_table_lookup_data,
+                                 get_grand_product_challenge_set)
+from .lookup import lookup_helper_columns
+from .proof import (AllProof, PublicValues, StarkOpeningSet, StarkProof,
+                    StarkProofWithMetadata)
+from .vanishing_poly import eval_vanishing_scheduled
+
+P = gl.P
+
+
+def observe_public_values(challenger: Challenger, pv: PublicValues):
+    challenger.observe_elements(pv.roots_before.root)
+    challenger.observe_elements(pv.roots_after.root)
+    challenger.observe_elements(list(pv.userdata))
+
+
+def public_inputs_of(stark, pv: PublicValues) -> tuple:
+    """The per-table public-input scalars selected from the proof claim."""
+    if not stark.num_public_inputs:
+        return ()
+    return tuple(stark.public_inputs(
+        [int(v) for v in pv.roots_before.root],
+        [int(v) for v in pv.roots_after.root],
+        [int(b) for b in pv.userdata]))
+
+
+def ctl_structure_of(ctl_data, chal_index) -> tuple:
+    """Static description of a table's CTL aux layout; chal_index maps a
+    challenge's (beta, gamma) to its index in the challenge list."""
+    return tuple(
+        (len(z.helper_columns), chal_index[(z.challenge.beta,
+                                            z.challenge.gamma)],
+         tuple(tuple(c) for c in z.columns), tuple(z.filters))
+        for z in ctl_data.zs_columns)
+
+
+@lru_cache(maxsize=16)
+def quotient_domain_tables(degree_bits: int, device: torch.device):
+    """(z_last, lagrange_first, lagrange_last, 1/Z_H) over the 2n quotient
+    coset g * H_2n, in natural order."""
+    n = 1 << degree_bits
+    m = 2 * n
+    xs = gl.mul(gl.powers(gl.primitive_root_of_unity(degree_bits + 1), m,
+                          device), gl.GENERATOR)
+    g_last = gl.host_pow(gl.primitive_root_of_unity(degree_bits), n - 1)
+    z_last = gl.sub(xs, g_last)
+    gn = gl.host_pow(gl.GENERATOR, n)
+    even = torch.arange(m, device=device) % 2 == 0
+    zh_even, zh_odd = (gn - 1) % P, (-gn - 1) % P
+
+    def two_valued(a: int, b: int) -> torch.Tensor:
+        return torch.where(even, gl.full((), a, device), gl.full((), b, device))
+
+    z_h = two_valued(zh_even, zh_odd)
+    inv_zh = two_valued(gl.host_inv(zh_even), gl.host_inv(zh_odd))
+    n_inv = gl.host_inv(n)
+    lag_first = gl.mul(gl.mul(z_h, n_inv), gl.inverse(gl.sub(xs, 1)))
+    lag_last = gl.mul(gl.mul(z_h, (n_inv * g_last) % P),
+                      gl.inverse(gl.sub(xs, g_last)))
+    return z_last, lag_first, lag_last, inv_zh
+
+
+def quotient_values(stark, degree_bits: int, trace_coeffs: torch.Tensor,
+                    aux_coeffs: torch.Tensor, alphas, num_lookup: int,
+                    ctl_structure, challenges, publics=()) -> List[torch.Tensor]:
+    """The alpha-combined vanishing polynomial / Z_H over the quotient
+    coset (size 2n): one (2n,) tensor per alpha."""
+    full = torch.cat([ntt.lde(trace_coeffs, 1), ntt.lde(aux_coeffs, 1)])
+    full_next = torch.roll(full, -2, dims=-1)
+    z_last, lag_first, lag_last, inv_zh = quotient_domain_tables(
+        degree_bits, trace_coeffs.device)
+    accs = eval_vanishing_scheduled(
+        stark, num_lookup, ctl_structure, full, full_next, challenges,
+        alphas, (z_last, lag_first, lag_last), publics)
+    return [gl.mul(acc, inv_zh) for acc in accs]
+
+
+def quotient_chunks(quotient_values: List[torch.Tensor], n: int) -> torch.Tensor:
+    """Coset values (2n) -> coefficients -> two degree-n chunks each,
+    challenge-major: (2 * len(quotient_values), n)."""
+    coeffs = ntt.coset_intt(torch.stack(quotient_values))     # (A, 2n)
+    return coeffs.reshape(-1, n)
+
+
+def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
+                       trace_commitment: PolynomialBatch, ctl_data,
+                       ctl_challenges, challenger: Challenger,
+                       publics=(), timer=None) -> StarkProofWithMetadata:
+    n = trace_values.shape[-1]
+    degree_bits = n.bit_length() - 1
+    rate_bits = config.fri_config.rate_bits
+    cap_height = config.fri_config.cap_height
+    device = trace_values.device
+
+    init_challenger_state = challenger.compact()
+
+    with step(timer, "ctl"):
+        aux_polys: List[torch.Tensor] = []
+        if stark.uses_lookups():
+            for lookup in stark.lookups():
+                for ch in ctl_challenges.challenges:
+                    aux_polys.extend(lookup_helper_columns(
+                        lookup, trace_values, ch.beta,
+                        stark.constraint_degree))
+        num_lookup_columns = len(aux_polys)
+        aux_polys.extend(ctl_data.ctl_helper_polys())
+        aux_polys.extend(ctl_data.ctl_z_polys())
+        assert aux_polys, "No CTL?"
+        aux_values = torch.stack(aux_polys)
+    with step(timer, "aux_commit"):
+        aux_commitment = PolynomialBatch.from_values(
+            aux_values, rate_bits, cap_height, device=device)
+        challenger.observe_cap(aux_commitment.cap_u64())
+
+    alphas = challenger.get_n_challenges(config.num_challenges)
+
+    chal_index = {(c.beta, c.gamma): i
+                  for i, c in enumerate(ctl_challenges.challenges)}
+    ctl_structure = ctl_structure_of(ctl_data, chal_index)
+    challenges = [(c.beta, c.gamma) for c in ctl_challenges.challenges]
+
+    with step(timer, "quotient"):
+        qvals = quotient_values(
+            stark, degree_bits, trace_commitment.coeffs,
+            aux_commitment.coeffs, alphas, num_lookup_columns,
+            ctl_structure, challenges, publics)
+
+    with step(timer, "quotient_commit"):
+        quotient_commitment = PolynomialBatch.from_coeffs(
+            quotient_chunks(qvals, n), rate_bits, cap_height, device=device)
+        challenger.observe_cap(quotient_commitment.cap_u64())
+
+    zeta = challenger.get_extension_challenge()
+    # zeta must lie outside H (otherwise Z_H(zeta) = 0)
+    assert gl2.host_pow(zeta, n) != (1, 0), "opening point is in the subgroup"
+
+    g = gl.primitive_root_of_unity(degree_bits)
+    zeta_next = gl2.host_mul(zeta, (g, 0))
+
+    with step(timer, "openings"):
+        (local_values, next_values, aux_open, aux_open_next,
+         quotient_open, aux_at_one) = fri_oracle.eval_columns_at_many(
+             [(trace_commitment.coeffs, zeta),
+              (trace_commitment.coeffs, zeta_next),
+              (aux_commitment.coeffs, zeta),
+              (aux_commitment.coeffs, zeta_next),
+              (quotient_commitment.coeffs, zeta)],
+             extra=[gl.sum_axis(aux_commitment.coeffs, -1)])
+    total_helpers = sum(ctl_data.num_ctl_helper_polys())
+    ctl_zs_first = aux_at_one[num_lookup_columns + total_helpers:]
+
+    openings = StarkOpeningSet(
+        local_values=local_values, next_values=next_values,
+        auxiliary_polys=aux_open, auxiliary_polys_next=aux_open_next,
+        ctl_zs_first=ctl_zs_first, quotient_polys=quotient_open)
+
+    for batch_vals in openings.fri_batches():
+        for c0, c1 in batch_vals:
+            challenger.observe_extension((int(c0), int(c1)))
+
+    num_columns = trace_commitment.coeffs.shape[0]
+    num_aux = aux_commitment.coeffs.shape[0]
+    num_quot = quotient_commitment.coeffs.shape[0]
+    batches = [
+        fri_oracle.OpeningBatch(point=zeta, ranges=(
+            fri_oracle.PolyRange(0, 0, num_columns),
+            fri_oracle.PolyRange(1, 0, num_aux),
+            fri_oracle.PolyRange(2, 0, num_quot))),
+        fri_oracle.OpeningBatch(point=zeta_next, ranges=(
+            fri_oracle.PolyRange(0, 0, num_columns),
+            fri_oracle.PolyRange(1, 0, num_aux))),
+        fri_oracle.OpeningBatch(point=(1, 0), ranges=(
+            fri_oracle.PolyRange(1, num_lookup_columns + total_helpers,
+                                 num_aux),)),
+    ]
+    oracles = [trace_commitment, aux_commitment, quotient_commitment]
+    opening_proof = fri_oracle.open_and_prove(
+        batches, openings.fri_batches(), oracles, challenger,
+        config.fri_config, timer)
+
+    proof = StarkProof(
+        trace_cap=trace_commitment.cap_u64(),
+        auxiliary_polys_cap=aux_commitment.cap_u64(),
+        quotient_polys_cap=quotient_commitment.cap_u64(),
+        openings=openings, opening_proof=opening_proof)
+    return StarkProofWithMetadata(
+        init_challenger_state=init_challenger_state, proof=proof,
+        degree_bits=degree_bits)
+
+
+def prove_with_traces(starks: Sequence, config: StarkConfig,
+                      traces: Sequence[torch.Tensor], ctls,
+                      public_values: PublicValues, device=None,
+                      timer=None) -> AllProof:
+    """traces[t]: (C_t, N_t) int64 trace values of table t.
+
+    Runs on the card unless device='cpu' (raises without a card).  `timer`
+    (a utils.timing.StepTimer) collects per-step seconds."""
+    dev = resolve_device(device)
+    traces = [t.to(dev) for t in traces]
+    rate_bits = config.fri_config.rate_bits
+    cap_height = config.fri_config.cap_height
+
+    with step(timer, "trace_commit"):
+        trace_commitments = [
+            PolynomialBatch.from_values(t, rate_bits, cap_height, device=dev)
+            for t in traces]
+        caps = [c.cap_u64() for c in trace_commitments]
+    challenger = Challenger()
+    for cap in caps:
+        challenger.observe_cap(cap)
+    observe_public_values(challenger, public_values)
+
+    ctl_challenges = get_grand_product_challenge_set(
+        challenger, config.num_challenges)
+    with step(timer, "ctl"):
+        ctl_data_per_table = cross_table_lookup_data(
+            traces, ctls, ctl_challenges, 3)
+
+    proofs = []
+    for i, (stark, commitment) in enumerate(zip(starks, trace_commitments)):
+        proofs.append(prove_single_table(
+            stark, config, traces[i], commitment, ctl_data_per_table[i],
+            ctl_challenges, challenger,
+            publics=public_inputs_of(stark, public_values), timer=timer))
+        # this table's commitment, trace and CTL columns are dead now:
+        # free them before the next table commits its oracles
+        commitment.release()
+        traces[i] = None
+        ctl_data_per_table[i] = None
+    return AllProof(stark_proofs=proofs, ctl_challenges=ctl_challenges,
+                    public_values=public_values)
