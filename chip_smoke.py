@@ -7,7 +7,8 @@ Phases (any failure exits nonzero):
   1. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
      print the card's name and power limit;
   2. each kernel against its plain PyTorch version on the card, bit for
-     bit (tolerance 0: everything is an integer mod p), with times;
+     bit (tolerance 0: everything is an integer mod p), with times; K2 also
+     at 816 shapes (`check_k2_shapes`);
   3. segment-scale trace commits (rate 2, cap 4) of random traces shaped
      like a hello segment's tables, and one cap checked against the CPU;
   4. a 2^16-row Logic proof with its self-CTL under standard_fast_config,
@@ -40,6 +41,19 @@ INT32_LANES_PER_SM = 64          # Hopper SM: 64 INT32 lanes per clock
 SEGMENT_TABLES = [("Cpu", 16, 260), ("Memory", 19, 13), ("Arithmetic", 16, 54),
                   ("Poseidon", 16, 262), ("PoseidonSponge", 16, 112),
                   ("Logic", 16, 69)]
+
+# K2 against its plain version: every log_n up to 12 (one pass, and each
+# pass boundary of ntt.plan), the main path's sizes and the largest two-
+# and three-pass sizes (22, 23), at these row counts, with n_in = N >> rate
+# for rate 0, 1, 2, in four modes: (inverse, scaled, factor != 1).  At
+# log_n K2_MANY_ROWS_LOG_N also K2_MANY_ROWS rows, more than the grid's
+# 65535, which the kernels' row loops cover.
+K2_LOG_NS = tuple(range(1, 13)) + (16, 17, 18, 19, 21, 22, 23)
+K2_ROWS = (1, 2, 13, 69, 260)
+K2_MANY_ROWS, K2_MANY_ROWS_LOG_N = 70_000, 4
+K2_MODES = ((False, False, False), (True, False, True), (False, True, False),
+            (True, True, True))
+K2_MAX_VALUES = 1 << 26          # rows x N cap for the plain version's memory
 
 
 def log(msg: str) -> None:
@@ -158,10 +172,16 @@ def phase_kernels(rng, dev) -> dict:
     ms = cuda_ms(kernel, reps=10, warmup=2)
     plain_ms = cuda_ms(plain, reps=2)
     m = n << rate_bits
-    butterflies = c * (n // 2 * log_n + m // 2 * (log_n + rate_bits))
+    # the butterflies the function needs: the lde's first rate_bits stages
+    # only copy its zero padding, so of its log_n + rate_bits stages log_n
+    # remain.  all_stages_bound counts those copies as butterflies too, as
+    # the per-stage design had to.
+    butterflies = c * (n // 2 * log_n + m // 2 * log_n)
+    copies = c * m // 2 * rate_bits
     scale_muls = 2 * c * n
     ops_bound = (butterflies * 36 + scale_muls * 26) / rate * 1e3
     bytes_bound = 8 * c * (n + m) / HBM_BYTES_PER_S * 1e3
+    all_stages_bound = ops_bound + copies * 36 / rate * 1e3
     out["goldilocks_ntt"] = dict(
         name="goldilocks_ntt", route="cuda",
         source="zkm_tpu_torch/csrc/ntt.cu",
@@ -172,10 +192,68 @@ def phase_kernels(rng, dev) -> dict:
         library_ms=None)
     log(f"[kernels] K2 ntt intt->lde (69, 2^16) rate 2: max_abs_err {err}; "
         f"kernel {ms:.3f} ms, plain {plain_ms:.2f} ms, bound "
-        f"{out['goldilocks_ntt']['bound_ms']:.4f} ms")
+        f"{out['goldilocks_ntt']['bound_ms']:.4f} ms ({all_stages_bound:.4f} "
+        f"ms counting the lde's {rate_bits} stages that copy padding); "
+        f"passes {len(ntt.plan(log_n))} + "
+        f"{len(ntt.plan(log_n + rate_bits))}")
     if err:
         raise AssertionError("K2 disagrees with its plain version")
+    check_k2_shapes(dev)
     return out
+
+
+def check_k2_shapes(dev, seed: int = 1) -> None:
+    """K2 bit-equal to `_transform_plain` at every K2_LOG_NS x K2_ROWS x
+    rate x K2_MODES case; at the large sizes the rows cycle through those
+    that fit K2_MAX_VALUES.  Inputs are slices of one random pool, from a
+    generator of its own so that the later phases' inputs do not depend
+    on these checks."""
+    import torch
+    from zkm_tpu_torch.convert import from_u64
+    from zkm_tpu_torch.field import goldilocks as gl
+    from zkm_tpu_torch.field import ntt
+
+    rng = np.random.default_rng(seed)
+    pool = from_u64(random_field(rng, K2_MAX_VALUES), dev)
+    cases = bad = 0
+    t0 = time.perf_counter()
+    for log_n in K2_LOG_NS:
+        n = 1 << log_n
+        fits = [r for r in K2_ROWS if r * n <= K2_MAX_VALUES]
+        for rate in (0, 1, 2):
+            n_in = max(1, n >> rate)
+            for m, (inverse, scaled, scaled_by_factor) in enumerate(K2_MODES):
+                if log_n > 12:
+                    rows_list = [fits[(log_n + 3 * rate + m) % len(fits)]]
+                elif log_n == K2_MANY_ROWS_LOG_N:
+                    rows_list = fits + [K2_MANY_ROWS]
+                else:
+                    rows_list = fits
+                for rows in rows_list:
+                    at = int(rng.integers(0, K2_MAX_VALUES - rows * n_in + 1))
+                    x = pool[at:at + rows * n_in].view(rows, n_in)
+                    scale = pool[:n_in].flip(0) if scaled else None
+                    factor = (gl.host_inv(n) if inverse else 12345) \
+                        if scaled_by_factor else 1
+                    got = ntt.transform(x, log_n, inverse, scale, factor)
+                    want = ntt._transform_plain(x, log_n, inverse, scale,
+                                                factor)
+                    cases += 1
+                    if not torch.equal(got, want):
+                        bad += 1
+                        log(f"[kernels] K2 MISMATCH log_n {log_n} rows {rows} "
+                            f"n_in {n_in} inverse {inverse} scaled {scaled} "
+                            f"factor {factor}")
+    torch.cuda.synchronize()
+    log(f"[kernels] K2 against its plain version at {cases} shapes (log_n "
+        f"{K2_LOG_NS[0]}-{K2_LOG_NS[11]}, {', '.join(map(str, K2_LOG_NS[12:]))}; "
+        f"rows {', '.join(map(str, K2_ROWS))}, and {K2_MANY_ROWS} at log_n "
+        f"{K2_MANY_ROWS_LOG_N}; rate 0-2; 4 modes), tolerance "
+        f"0: {cases - bad} bit-equal, {bad} differ "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if bad:
+        raise AssertionError(f"K2 disagrees with its plain version at {bad} "
+                             f"shapes")
 
 
 def phase_commits(rng, dev) -> None:

@@ -149,3 +149,20 @@ def test_ntt_transforms_match_direct_evaluation(log_n):
     assert np.array_equal(ntt.bit_reverse_tensor(log_n, tx.device).numpy(),
                           rntt.bit_reverse_indices(log_n))
     assert gl.GENERATOR == rgl.GENERATOR
+
+
+@pytest.mark.parametrize("log_n", range(25))
+def test_ntt_plan_runs_each_stage_once_within_a_tile(log_n):
+    """K2's passes cover stages 1..log_n once each, in order; a tile fits
+    its shared memory; a transform is one pass up to 2^11, two up to 2^22
+    (the main path's sizes) and three up to 2^24; a pass takes 2^log_cols
+    columns only where the transform has them (chunks in the first pass,
+    low positions in a later one), and at least 4 where it has that many."""
+    passes = ntt.plan(log_n)
+    stages = [s for first, n, _ in passes for s in range(first, first + n)]
+    assert stages == list(range(1, log_n + 1))
+    assert len(passes) == (1 if log_n <= 11 else 2 if log_n <= 22 else 3)
+    for i, (first, n, log_cols) in enumerate(passes):
+        assert 0 <= n <= ntt.MAX_STAGES and n + log_cols <= ntt.LOG_TILE
+        has = log_n - n if i == 0 else first - 1
+        assert min(2, has) <= log_cols <= min(ntt.LOG_COLS, has)

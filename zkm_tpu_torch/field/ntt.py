@@ -10,8 +10,9 @@ Every transform is one call of `transform` (`coset_intt` then scales its
 output by the shift's inverse powers):
     out = NTT_N(zero_pad(x) * scale) * factor
 with decimation in time (bit-reversed input order, natural output).  On a
-CUDA tensor that is kernel K2 (`csrc/ntt.cu`); on a CPU tensor it is the
-plain version `_transform_plain`, which does the same arithmetic.
+CUDA tensor that is kernel K2 (`csrc/ntt.cu`), in the passes `plan` gives;
+on a CPU tensor it is the plain version `_transform_plain`, which does the
+same arithmetic.
 """
 
 from __future__ import annotations
@@ -27,6 +28,33 @@ from . import goldilocks as gl
 
 # K2's launch count: every kernel launch below adds one.
 LAUNCHES = 0
+
+# K2 runs a transform in passes of at most MAX_STAGES radix-2 stages, each
+# on tiles of at most 2^LOG_TILE values (64 KB of shared memory) that take
+# up to 2^LOG_COLS columns side by side (64-byte runs in device memory).
+# The shared-memory budget is set here only: `csrc/ntt.cu` launches the
+# tiles it is given, and one larger than the card allows fails at launch.
+MAX_STAGES = 11
+LOG_TILE = 13
+LOG_COLS = 3
+
+
+def plan(log_n: int) -> list[tuple[int, int, int]]:
+    """K2's passes for a size-2^log_n transform, (first_stage, stages,
+    log_cols) each: stages 1..log_n once each, in as few passes as
+    MAX_STAGES allows, split evenly.  A pass works on tiles of
+    2^(stages + log_cols) values: 2^log_cols columns (chunks in the first
+    pass, consecutive low positions in a later one), as many as the
+    transform has, up to LOG_COLS and the tile's LOG_TILE."""
+    n_passes = max(1, -(-log_n // MAX_STAGES))
+    passes, done = [], 0
+    for left in range(n_passes, 0, -1):
+        stages = -(-(log_n - done) // left)
+        cols = log_n - stages if done == 0 else done
+        passes.append((done + 1, stages,
+                       min(LOG_COLS, LOG_TILE - stages, cols)))
+        done += stages
+    return passes
 
 
 @lru_cache(maxsize=64)
@@ -96,20 +124,25 @@ def _transform_cuda(x: torch.Tensor, log_n: int, inverse: bool,
     rows, n_in = x.shape
     x = x.contiguous()
     out = torch.empty((rows, 1 << log_n), dtype=torch.int64, device=x.device)
+    if rows == 0:
+        return out
     if scale is not None:
         _check_table(scale, x, n_in)
         scale = scale.contiguous()
-    stream = native.stream_ptr(x.device)
-    native.check(lib, lib.zkm_ntt_bitrev_scale(
-        x.data_ptr(), out.data_ptr(),
-        scale.data_ptr() if scale is not None else None,
-        factor % gl.P, rows, n_in, log_n, stream), "ntt bitrev_scale")
-    LAUNCHES += 1
     tw = twiddles(log_n, inverse, x.device)
-    for s in range(1, log_n + 1):
-        native.check(lib, lib.zkm_ntt_stage(
-            out.data_ptr(), tw.data_ptr(), rows, log_n, s, stream),
-            "ntt stage")
+    stream = native.stream_ptr(x.device)
+    for first, stages, log_cols in plan(log_n):
+        if first == 1:
+            err = lib.zkm_ntt_first_pass(
+                x.data_ptr(), out.data_ptr(),
+                scale.data_ptr() if scale is not None else None,
+                factor % gl.P, tw.data_ptr(), rows, n_in, log_n, stages,
+                log_cols, stream)
+        else:
+            err = lib.zkm_ntt_pass(
+                out.data_ptr(), tw.data_ptr(), rows, log_n, first, stages,
+                log_cols, stream)
+        native.check(lib, err, f"ntt pass from stage {first}")
         LAUNCHES += 1
     return out
 

@@ -30,7 +30,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
-_INT = ctypes.c_int
 _SIGNATURES = {
     "poseidon": {
         "zkm_poseidon_ops_per_permutation": [],
@@ -38,9 +37,9 @@ _SIGNATURES = {
         "zkm_poseidon_permute": [_P, _P, _I64, _P],
     },
     "ntt": {
-        "zkm_ntt_bitrev_scale": [_P, _P, _P, ctypes.c_uint64, _I64, _I64,
-                                 _INT, _P],
-        "zkm_ntt_stage": [_P, _P, _I64, _INT, _INT, _P],
+        "zkm_ntt_first_pass": [_P, _P, _P, ctypes.c_uint64, _P, _I64, _I64,
+                               _I64, _I64, _I64, _P],
+        "zkm_ntt_pass": [_P, _P, _I64, _I64, _I64, _I64, _I64, _P],
     },
 }
 
