@@ -14,10 +14,16 @@ Phases (any failure exits nonzero):
   4. a 2^16-row Logic proof with its self-CTL under standard_fast_config,
      verified by the port's verifier; the same statement at 2^10 rows
      against the CPU digest; the frozen golden Logic proof;
-  5. only with --profile: where the time of a warm 2^16 Logic proof goes,
-     per-step times and device time per kernel name under torch.profiler.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+  5. the main path, a whole SPONGE_SUBSET segment proof from the frozen
+     toy-segment witness (zkm_tpu_torch/data): (a) at its natural heights,
+     whose flattened sha256 must equal zkm_tpu's, accepted by the port's
+     verifier and a tampered copy rejected; (b) at a hello segment's
+     heights (SEGMENT_TABLES floors), a first and a warm proof, verified,
+     with per-step times, launches and peak device memory; with --profile
+     also a warm (b) proof under torch.profiler: device-busy share and
+     device time per kernel name.
+The line before the last is {"kernels": [...]}, with the launches of the
+first (b) proof; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -312,7 +318,7 @@ def _prove(rows, ctls, pv, config, device, timer=None):
                              device=device, timer=timer)
 
 
-def phase_proof(rng, dev) -> dict:
+def phase_proof(rng, dev) -> None:
     import torch
     from zkm_tpu_torch.field import ntt
     from zkm_tpu_torch.hash import poseidon as ps
@@ -328,7 +334,8 @@ def phase_proof(rng, dev) -> dict:
     config = StarkConfig.standard_fast_config()
     rows, ctls, pv = _logic_statement(rng, 16)
 
-    # The main path: counts set to 0 just before, read just after.
+    # The Logic path's launches (the main path's are phase 5's): counts
+    # set to 0 just before, read just after.
     ps.LAUNCHES = 0
     ntt.LAUNCHES = 0
     timer = StepTimer(dev)
@@ -370,35 +377,116 @@ def phase_proof(rng, dev) -> dict:
     log(f"[proof] frozen logic_proof on the card: {golden == v['sha256_flat']}")
     if golden != v["sha256_flat"]:
         raise AssertionError("frozen logic_proof does not reproduce")
+
+
+def _segment_floors():
+    from zkm_tpu_torch.stark.all_stark import Table
+    return {Table[name]: 1 << log_n for name, log_n, _ in SEGMENT_TABLES}
+
+
+def _prove_segment(ts, pv, dev, floors=None, timer=None):
+    """One timed SPONGE_SUBSET proof of the witness `ts`; returns (proof,
+    wall seconds, {kernel: launches in this proof})."""
+    import torch
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.field import ntt
+    from zkm_tpu_torch.hash import poseidon as ps
+    from zkm_tpu_torch.stark.config import StarkConfig
+    ps.LAUNCHES = 0
+    ntt.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proof = host.prove_trace_set(ts, pv, StarkConfig.standard_fast_config(),
+                                 height_floors=floors, device=dev,
+                                 timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return proof, wall, {"poseidon_permute": ps.LAUNCHES,
+                         "goldilocks_ntt": ntt.LAUNCHES}
+
+
+def check_segment_parity(ts, pv, ref, dev) -> None:
+    """(a) the natural-height proof is bit-identical to zkm_tpu's, the
+    port's verifier accepts it and rejects a tampered copy."""
+    import copy
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.stark.proof import flat_sha256, flatten_proof
+
+    proof, wall, launches = _prove_segment(ts, pv, dev)
+    heights = [p.degree_bits for p in proof.stark_proofs]
+    digest = flat_sha256(flatten_proof(proof))
+    log(f"[segment] toy segment at natural heights 2^{heights}: "
+        f"{wall:.3f} s, launches {launches}; flattened sha256 {digest} == "
+        f"zkm_tpu's {ref['sha256_flat']}: {digest == ref['sha256_flat']}")
+    if heights != ref["natural_heights_log2"] or \
+            digest != ref["sha256_flat"]:
+        raise AssertionError("segment proof differs from zkm_tpu's")
+    host.verify_segment(proof)
+    bad = copy.deepcopy(proof)
+    vals = bad.stark_proofs[1].proof.openings.local_values
+    vals[0, 0] = (int(vals[0, 0]) + 1) % P
+    try:
+        host.verify_segment(bad)
+    except ValueError as e:
+        log(f"[segment] verified by the port's verifier; a copy with one "
+            f"Cpu opening changed is rejected ({e})")
+    else:
+        raise AssertionError("the verifier accepted a tampered proof")
+
+
+def prove_hello_heights(ts, pv, dev) -> dict:
+    """(b) the same witness at a hello segment's heights: a first and a
+    warm proof, each verified.  Returns the first proof's launches."""
+    import torch
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.utils.timing import StepTimer
+
+    floors = _segment_floors()
+    main_launches = None
+    for label in ("first", "warm"):
+        timer = StepTimer(dev)
+        torch.cuda.reset_peak_memory_stats()
+        proof, wall, launches = _prove_segment(ts, pv, dev, floors, timer)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        main_launches = main_launches or launches
+        steps = ", ".join(f"{k} {v * 1e3:.1f} ms"
+                          for k, v in timer.seconds.items())
+        heights = [p.degree_bits for p in proof.stark_proofs]
+        log(f"[segment] hello heights 2^{heights}, {label} proof: wall "
+            f"{wall:.3f} s ({steps}); launches {launches}; peak device "
+            f"memory {peak:.2f} GiB")
+        t0 = time.perf_counter()
+        host.verify_segment(proof)
+        log(f"[segment] {label} proof verified by the port's verifier in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del proof
+    if not all(main_launches.values()):
+        raise AssertionError(f"a kernel was not launched: {main_launches}")
+    return main_launches
+
+
+def phase_segment(dev, profile: bool) -> dict:
+    """The main path; returns the launches of the first hello-height
+    proof."""
+    from zkm_tpu_torch.witness.trace_set import load_toy_segment
+    ts, pv, ref = load_toy_segment()
+    check_segment_parity(ts, pv, ref, dev)
+    launches = prove_hello_heights(ts, pv, dev)
+    if profile:
+        profile_segment(ts, pv, dev, _segment_floors())
     return launches
 
 
-def phase_profile(rng, dev) -> None:
-    """Where the time of a warm 2^16 Logic proof goes: per-step times of
-    one warm run, then device time per kernel name from torch.profiler in
-    another, with the device-busy share of its wall time (the profiler's
-    own overhead is part of that wall)."""
-    import torch
+def profile_segment(ts, pv, dev, floors) -> None:
+    """Device time per kernel name of a warm hello-height proof under
+    torch.profiler, with the device-busy share of its wall time (the
+    profiler's own overhead is part of that wall)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from zkm_tpu_torch.stark.config import StarkConfig
-    from zkm_tpu_torch.utils.timing import StepTimer
 
-    rows, ctls, pv = _logic_statement(rng, 16)
-    config = StarkConfig.standard_fast_config()
-    timer = StepTimer(dev)
-    t0 = time.perf_counter()
-    _prove(rows, ctls, pv, config, dev, timer)
-    steps = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.seconds.items())
-    log(f"[profile] warm Logic 2^16 proof: {time.perf_counter() - t0:.3f} s "
-        f"({steps})")
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _prove(rows, ctls, pv, config, dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        _, wall, _ = _prove_segment(ts, pv, dev, floors)
     rows_out = []
     for e in prof.key_averages():
         # kernels and copies only: an aten op's own entry repeats the
@@ -407,11 +495,11 @@ def phase_profile(rng, dev) -> None:
             rows_out.append((e.self_device_time_total, e.count, e.key))
     rows_out.sort(reverse=True)
     device_us = sum(r[0] for r in rows_out)
-    log(f"[profile] warm Logic 2^16 proof under the profiler: wall "
-        f"{wall * 1e3:.1f} ms, device time {device_us / 1e3:.1f} ms "
+    log(f"[profile] warm hello-height segment proof under the profiler: "
+        f"wall {wall * 1e3:.1f} ms, device time {device_us / 1e3:.1f} ms "
         f"(busy share {device_us / 1e4 / wall:.1f}%), "
         f"{sum(r[1] for r in rows_out)} kernels and copies")
-    for us, count, key in rows_out[:15]:
+    for us, count, key in rows_out[:20]:
         log(f"[profile] {us / 1e3:9.2f} ms {count:7d}x {key[:90]}")
 
 
@@ -420,7 +508,7 @@ def main() -> int:
     import torch
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile a warm 2^16 Logic proof")
+                        help="also profile a warm hello-height segment proof")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -432,9 +520,8 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels(rng, dev)
     phase_commits(rng, dev)
-    launches = phase_proof(rng, dev)
-    if args.profile:
-        phase_profile(rng, dev)
+    phase_proof(rng, dev)
+    launches = phase_segment(dev, args.profile)
     for name, k in kernels.items():
         k["launches"] = launches[name]
     log(json.dumps({"kernels": list(kernels.values())}))

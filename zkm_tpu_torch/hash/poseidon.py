@@ -1,12 +1,13 @@
 """Poseidon permutation and plonky2-style hashing over Goldilocks, batched.
 
-Counterpart of `zkm_tpu/hash/poseidon.py` (the Merkle/challenger half; the
-emulator's byte sponge is not part of the port yet).  A batch of states is
-an int64 tensor (..., 12).  `permute` runs kernel K1 (`csrc/poseidon.cu`)
-for a CUDA tensor and the plain version `_permute_plain` for a CPU tensor;
-every other function here is built on `permute`.  The naive partial-round
-evaluation is used: mathematically identical to plonky2's fast partial
-rounds.
+Counterpart of `zkm_tpu/hash/poseidon.py`: the Merkle/challenger half and
+the byte sponge's block packing and permutation chain (the emulator's
+`poseidon_bytes` and `sponge_chain_states` are not part of the port yet).
+A batch of states is an int64 tensor (..., 12).  `permute` runs kernel K1
+(`csrc/poseidon.cu`) for a CUDA tensor and the plain version
+`_permute_plain` for a CPU tensor; every other function here is built on
+`permute`.  The naive partial-round evaluation is used: mathematically
+identical to plonky2's fast partial rounds.
 """
 
 from __future__ import annotations
@@ -18,12 +19,14 @@ import numpy as np
 import torch
 
 from .. import native
+from ..convert import to_u64
 from ..field import goldilocks as gl
 from . import poseidon_constants as C
 
 SPONGE_RATE = C.SPONGE_RATE       # 8 field elements
 SPONGE_WIDTH = C.SPONGE_WIDTH     # 12
 DIGEST = 4                        # hash output = 4 field elements
+RATE_BYTES = 4 * SPONGE_RATE      # byte sponge: 8 u32 words per block
 
 _RC = np.array(C.ALL_ROUND_CONSTANTS, dtype=np.uint64).reshape(C.N_ROUNDS, 12)
 _MDS_IDX = (np.arange(12)[:, None] + np.arange(12)[None, :]) % 12
@@ -160,6 +163,41 @@ def two_to_one(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """Compress two (..., 4) digests into one (one permute)."""
     cap = left.new_zeros(left.shape[:-1] + (SPONGE_WIDTH - 2 * DIGEST,))
     return permute(torch.cat([left, right, cap], dim=-1))[..., :DIGEST]
+
+
+# ---------------------------------------------------------------------------
+# Byte sponge (pad10*1 over 32-byte rate blocks, LE u32 words; zkMIPS
+# emulator/src/memory.rs:43-79).
+# ---------------------------------------------------------------------------
+
+def bytes_to_rate_blocks(data: bytes) -> np.ndarray:
+    """Pad10*1 and pack into (num_blocks, 8) uint32 LE words (host-side)."""
+    l = len(data)
+    chunks = l // RATE_BYTES + 1
+    buf = bytearray(data)
+    buf.extend(b"\x00" * (chunks * RATE_BYTES - l))
+    if l % RATE_BYTES == RATE_BYTES - 1:
+        buf[l] = 0b10000001
+    else:
+        buf[l] = 1
+        buf[chunks * RATE_BYTES - 1] = 0b10000000
+    return np.frombuffer(bytes(buf), dtype="<u4").reshape(chunks, 8)
+
+
+def chain_states(blocks: np.ndarray, device) -> tuple:
+    """(k, nb, 8) u32 blocks of k sponges -> (pre, post), each (k, nb, 12)
+    u64: the state before block b's rate is overwritten, and the
+    permutation's output after it.  One `permute` per block index, batched
+    over the k sponges (the reference's `_chain_states` scan)."""
+    k, nb, _ = blocks.shape
+    state = torch.zeros((k, SPONGE_WIDTH), dtype=torch.int64, device=device)
+    words = torch.from_numpy(blocks.astype(np.int64)).to(device)
+    pre, post = [], []
+    for b in range(nb):
+        pre.append(state)
+        state = permute(torch.cat([words[:, b], state[:, SPONGE_RATE:]], 1))
+        post.append(state)
+    return to_u64(torch.stack(pre, 1)), to_u64(torch.stack(post, 1))
 
 
 # ---------------------------------------------------------------------------

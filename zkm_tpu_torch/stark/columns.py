@@ -34,6 +34,14 @@ class Column:
         return Column(linear=((c, 1),))
 
     @staticmethod
+    def singles(cs) -> "list[Column]":
+        return [Column.single(c) for c in cs]
+
+    @staticmethod
+    def constant_col(k: int) -> "Column":
+        return Column(constant=k % P)
+
+    @staticmethod
     def zero() -> "Column":
         return Column()
 
