@@ -14,20 +14,30 @@ Phases (any failure exits nonzero):
   4. a 2^16-row Logic proof with its self-CTL under standard_fast_config,
      verified by the port's verifier; the same statement at 2^10 rows
      against the CPU digest; the frozen golden Logic proof;
-  5. the main path, a whole SPONGE_SUBSET segment proof from the frozen
-     toy-segment witness (zkm_tpu_torch/data): (a) at its natural heights,
-     whose flattened sha256 must equal zkm_tpu's, accepted by the port's
-     verifier and a tampered copy rejected; (b) at a hello segment's
-     heights (SEGMENT_TABLES floors), a first and a warm proof, verified,
-     with per-step times, launches and peak device memory; with --profile
-     also a warm (b) proof under torch.profiler: device-busy share and
-     device time per kernel name.
+  5. whole SPONGE_SUBSET segment proofs of the toy segment (the 11
+     instructions of TOY_PROGRAM): (a) from program bytes through the
+     port's emulator (split_prog_into_segs) and host.prove_segment at
+     natural heights: the fresh witness must equal the frozen one
+     (zkm_tpu_torch/data) field for field, the public values and the
+     flattened sha256 zkm_tpu's; the port's verifier accepts the proof
+     and rejects a tampered copy; (b) the frozen witness at a hello
+     segment's heights (SEGMENT_TABLES floors), one proof, verified;
+  6. the main path: the memalloc guest (runtime.examples.
+     build_memalloc_guest(64, 64)) assembled, split at 2^16 cycles and
+     proved by host.prove_segment at its natural heights, a first and a
+     warm run, each verified, with per-step times (emulate, witness,
+     trace_build and the prover's steps), K1 and K2 launches per step and
+     peak device memory; the segment and its witness must match zkm_tpu's
+     record (zkm_tpu_torch/data/memalloc_segment_reference.json); with
+     --profile also a warm host.prove_segment of that segment under
+     torch.profiler: device-busy share and device time per kernel name.
 The line before the last is {"kernels": [...]}, with the launches of the
-first (b) proof; the last line is {"ok": true, "device": {...}}.
+first phase-6 run; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -61,9 +71,55 @@ K2_MODES = ((False, False, False), (True, False, True), (False, True, False),
             (True, True, True))
 K2_MAX_VALUES = 1 << 26          # rows x N cap for the plain version's memory
 
+# bench._toy_segment()'s program; the frozen toy witness is its segment's
+TOY_PROGRAM = (0x24080005, 0x2409000A, 0x01095020, 0x3508BEEF, 0x01096824,
+               0x01097025, 0xAE2A0000, 0x8E2B0000, 0x24021096, 0x24040000,
+               0x0000000C)
+MEMALLOC_ARGS, MEMALLOC_SEG_SIZE = (64, 64), 1 << 16
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class LaunchTimer:
+    """Per-step wall seconds (utils.timing.StepTimer) and K1/K2 launches,
+    for the host functions' `timer` argument."""
+
+    def __init__(self, dev):
+        from zkm_tpu_torch.utils.timing import StepTimer
+        self.timer = StepTimer(dev)
+        self.seconds = self.timer.seconds
+        self.launches = {}
+
+    @contextlib.contextmanager
+    def step(self, name: str):
+        from zkm_tpu_torch.field import ntt
+        from zkm_tpu_torch.hash import poseidon as ps
+        k1, k2 = ps.LAUNCHES, ntt.LAUNCHES
+        with self.timer.step(name):
+            yield
+        got = self.launches.setdefault(name, [0, 0])
+        got[0] += ps.LAUNCHES - k1
+        got[1] += ntt.LAUNCHES - k2
+
+    def report(self) -> str:
+        return ", ".join(
+            f"{k} {v * 1e3:.1f} ms (K1 {self.launches[k][0]}, K2 "
+            f"{self.launches[k][1]})" for k, v in self.seconds.items())
+
+
+def reset_launches() -> None:
+    from zkm_tpu_torch.field import ntt
+    from zkm_tpu_torch.hash import poseidon as ps
+    ps.LAUNCHES = 0
+    ntt.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from zkm_tpu_torch.field import ntt
+    from zkm_tpu_torch.hash import poseidon as ps
+    return {"poseidon_permute": ps.LAUNCHES, "goldilocks_ntt": ntt.LAUNCHES}
 
 
 def nvidia_smi(query: str) -> str:
@@ -320,8 +376,6 @@ def _prove(rows, ctls, pv, config, device, timer=None):
 
 def phase_proof(rng, dev) -> None:
     import torch
-    from zkm_tpu_torch.field import ntt
-    from zkm_tpu_torch.hash import poseidon as ps
     from zkm_tpu_torch.stark.config import StarkConfig
     from zkm_tpu_torch.stark.cross_table_lookup import (CrossTableLookup,
                                                         TableWithColumns)
@@ -334,17 +388,15 @@ def phase_proof(rng, dev) -> None:
     config = StarkConfig.standard_fast_config()
     rows, ctls, pv = _logic_statement(rng, 16)
 
-    # The Logic path's launches (the main path's are phase 5's): counts
+    # The Logic path's launches (the main path's are phase 6's): counts
     # set to 0 just before, read just after.
-    ps.LAUNCHES = 0
-    ntt.LAUNCHES = 0
+    reset_launches()
     timer = StepTimer(dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     proof = _prove(rows, ctls, pv, config, dev, timer)
     total = time.perf_counter() - t0
-    launches = {"poseidon_permute": ps.LAUNCHES,
-                "goldilocks_ntt": ntt.LAUNCHES}
+    launches = read_launches()
     steps = ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in timer.seconds.items())
     log(f"[proof] Logic 2^16 standard_fast_config on the card: {total:.3f} s "
         f"({steps}); launches {launches}")
@@ -379,114 +431,233 @@ def phase_proof(rng, dev) -> None:
         raise AssertionError("frozen logic_proof does not reproduce")
 
 
-def _segment_floors():
-    from zkm_tpu_torch.stark.all_stark import Table
-    return {Table[name]: 1 << log_n for name, log_n, _ in SEGMENT_TABLES}
+def _toy_segment(dev):
+    """The toy program's one segment, split by the port's emulator on
+    `dev` (its page hashing: K1)."""
+    from zkm_tpu_torch.emulator.state import State
+    from zkm_tpu_torch.emulator.utils import split_prog_into_segs
+    st = State(dev)
+    st.memory.set_memory_range(0, b"".join(w.to_bytes(4, "big")
+                                           for w in TOY_PROGRAM))
+    _, segs, _ = split_prog_into_segs(st, seg_size=1 << 20)
+    return segs[0]
 
 
-def _prove_segment(ts, pv, dev, floors=None, timer=None):
-    """One timed SPONGE_SUBSET proof of the witness `ts`; returns (proof,
-    wall seconds, {kernel: launches in this proof})."""
-    import torch
-    from zkm_tpu_torch import host
-    from zkm_tpu_torch.field import ntt
-    from zkm_tpu_torch.hash import poseidon as ps
-    from zkm_tpu_torch.stark.config import StarkConfig
-    ps.LAUNCHES = 0
-    ntt.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    proof = host.prove_trace_set(ts, pv, StarkConfig.standard_fast_config(),
-                                 height_floors=floors, device=dev,
-                                 timer=timer)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    return proof, wall, {"poseidon_permute": ps.LAUNCHES,
-                         "goldilocks_ntt": ntt.LAUNCHES}
+def _same_witness(a, b) -> bool:
+    from zkm_tpu_torch.witness.trace_set import pack
+    a, b = pack(a), pack(b)
+    return a.keys() == b.keys() and all(
+        a[k].shape == b[k].shape and np.array_equal(a[k], b[k]) for k in a)
 
 
-def check_segment_parity(ts, pv, ref, dev) -> None:
-    """(a) the natural-height proof is bit-identical to zkm_tpu's, the
-    port's verifier accepts it and rejects a tampered copy."""
+def _reject_tampered(proof) -> str:
+    """The port's verifier on a copy with one Cpu opening changed; returns
+    its error."""
     import copy
     from zkm_tpu_torch import host
-    from zkm_tpu_torch.stark.proof import flat_sha256, flatten_proof
-
-    proof, wall, launches = _prove_segment(ts, pv, dev)
-    heights = [p.degree_bits for p in proof.stark_proofs]
-    digest = flat_sha256(flatten_proof(proof))
-    log(f"[segment] toy segment at natural heights 2^{heights}: "
-        f"{wall:.3f} s, launches {launches}; flattened sha256 {digest} == "
-        f"zkm_tpu's {ref['sha256_flat']}: {digest == ref['sha256_flat']}")
-    if heights != ref["natural_heights_log2"] or \
-            digest != ref["sha256_flat"]:
-        raise AssertionError("segment proof differs from zkm_tpu's")
-    host.verify_segment(proof)
     bad = copy.deepcopy(proof)
     vals = bad.stark_proofs[1].proof.openings.local_values
     vals[0, 0] = (int(vals[0, 0]) + 1) % P
     try:
         host.verify_segment(bad)
     except ValueError as e:
-        log(f"[segment] verified by the port's verifier; a copy with one "
-            f"Cpu opening changed is rejected ({e})")
-    else:
-        raise AssertionError("the verifier accepted a tampered proof")
+        return str(e)
+    raise AssertionError("the verifier accepted a tampered proof")
 
 
-def prove_hello_heights(ts, pv, dev) -> dict:
-    """(b) the same witness at a hello segment's heights: a first and a
-    warm proof, each verified.  Returns the first proof's launches."""
+def check_toy_segment(dev) -> None:
+    """(a) the toy segment from program bytes through the port's emulator
+    and host.prove_segment at natural heights: its witness, public values
+    and flattened sha256 against zkm_tpu's."""
     import torch
     from zkm_tpu_torch import host
-    from zkm_tpu_torch.utils.timing import StepTimer
-
-    floors = _segment_floors()
-    main_launches = None
-    for label in ("first", "warm"):
-        timer = StepTimer(dev)
-        torch.cuda.reset_peak_memory_stats()
-        proof, wall, launches = _prove_segment(ts, pv, dev, floors, timer)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        main_launches = main_launches or launches
-        steps = ", ".join(f"{k} {v * 1e3:.1f} ms"
-                          for k, v in timer.seconds.items())
-        heights = [p.degree_bits for p in proof.stark_proofs]
-        log(f"[segment] hello heights 2^{heights}, {label} proof: wall "
-            f"{wall:.3f} s ({steps}); launches {launches}; peak device "
-            f"memory {peak:.2f} GiB")
-        t0 = time.perf_counter()
-        host.verify_segment(proof)
-        log(f"[segment] {label} proof verified by the port's verifier in "
-            f"{time.perf_counter() - t0:.1f} s")
-        del proof
-    if not all(main_launches.values()):
-        raise AssertionError(f"a kernel was not launched: {main_launches}")
-    return main_launches
-
-
-def phase_segment(dev, profile: bool) -> dict:
-    """The main path; returns the launches of the first hello-height
-    proof."""
+    from zkm_tpu_torch.stark.all_stark import make_all_stark
+    from zkm_tpu_torch.stark.proof import flat_sha256, flatten_proof
     from zkm_tpu_torch.witness.trace_set import load_toy_segment
-    ts, pv, ref = load_toy_segment()
-    check_segment_parity(ts, pv, ref, dev)
-    launches = prove_hello_heights(ts, pv, dev)
+
+    frozen, pv_ref, ref = load_toy_segment()
+    timer = LaunchTimer(dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timer.step("emulate"):
+        seg = _toy_segment(dev)
+    proof = host.prove_segment(seg, device=dev, timer=timer).proof
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    heights = [p.degree_bits for p in proof.stark_proofs]
+    digest = flat_sha256(flatten_proof(proof))
+    same_pv = host.public_values_for_segment(seg) == pv_ref
+    same_ts = _same_witness(
+        host.segment_witness(seg, make_all_stark(), device=dev), frozen)
+    log(f"[segment] toy program -> split_prog_into_segs -> prove_segment at "
+        f"natural heights 2^{heights}: {wall:.3f} s ({timer.report()}); "
+        f"launches {launches}")
+    log(f"[segment] toy witness == frozen npz field for field: {same_ts}; "
+        f"public values == zkm_tpu's: {same_pv}; flattened sha256 {digest} "
+        f"== zkm_tpu's {ref['sha256_flat']}: {digest == ref['sha256_flat']}")
+    if not (same_ts and same_pv) or heights != ref["natural_heights_log2"] \
+            or digest != ref["sha256_flat"]:
+        raise AssertionError("toy segment differs from zkm_tpu's")
+    host.verify_segment(proof)
+    log(f"[segment] verified by the port's verifier; a copy with one Cpu "
+        f"opening changed is rejected ({_reject_tampered(proof)})")
+
+
+def prove_hello_heights(ts, pv, dev) -> None:
+    """(b) the frozen toy witness at a hello segment's heights: one proof,
+    verified."""
+    import torch
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.stark.all_stark import Table
+
+    floors = {Table[name]: 1 << log_n for name, log_n, _ in SEGMENT_TABLES}
+    timer = LaunchTimer(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    proof = host.prove_trace_set(ts, pv, height_floors=floors, device=dev,
+                                 timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    heights = [p.degree_bits for p in proof.stark_proofs]
+    log(f"[segment] frozen toy witness at hello heights 2^{heights}: wall "
+        f"{wall:.3f} s ({timer.report()}); launches {launches}; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    host.verify_segment(proof)
+    log("[segment] verified by the port's verifier")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+
+
+def phase_segment(dev) -> None:
+    from zkm_tpu_torch.witness.trace_set import load_toy_segment
+    check_toy_segment(dev)
+    ts, pv, _ = load_toy_segment()
+    prove_hello_heights(ts, pv, dev)
+
+
+def run_memalloc(dev, timer=None):
+    """The main path: assemble the memalloc guest, split it ("emulate") and
+    prove each segment with host.prove_segment.  Returns (total steps,
+    segments, receipts)."""
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.emulator.state import State
+    from zkm_tpu_torch.emulator.utils import split_prog_into_segs
+    from zkm_tpu_torch.runtime.examples import build_memalloc_guest
+    from zkm_tpu_torch.utils.timing import step
+
+    with step(timer, "emulate"):
+        st = State(dev)
+        st.memory.set_memory_range(0, build_memalloc_guest(*MEMALLOC_ARGS))
+        total, segs, _ = split_prog_into_segs(st, seg_size=MEMALLOC_SEG_SIZE)
+    receipts = [host.prove_segment(s, device=dev, timer=timer) for s in segs]
+    host.check_receipt_chain(receipts)
+    return total, segs, receipts
+
+
+def segment_record(seg, heights) -> dict:
+    """The fields of memalloc_segment_reference.json a run can check
+    without the witness."""
+    from zkm_tpu_torch import host
+    pv = host.public_values_for_segment(seg)
+    return {
+        "step": seg.step, "pc": seg.pc, "end_pc": seg.end_pc,
+        "pre_image_id": seg.pre_image_id.hex(),
+        "image_id": seg.image_id.hex(),
+        "public_values": {"roots_before": pv.roots_before.root,
+                          "roots_after": pv.roots_after.root,
+                          "userdata": pv.userdata.hex()},
+        "natural_heights_log2": heights}
+
+
+def phase_main_path(dev, profile: bool) -> dict:
+    """Phase 6: the memalloc guest end to end, a first and a warm run, each
+    verified and held against zkm_tpu's record.  Returns the first run's
+    launches."""
+    import torch
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.stark.all_stark import make_all_stark
+    from zkm_tpu_torch.witness.trace_set import DATA, field_digests
+
+    with open(os.path.join(DATA, "memalloc_segment_reference.json")) as f:
+        record = json.load(f)
+    main = None
+    for label in ("first", "warm"):
+        timer = LaunchTimer(dev)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, segs, receipts = run_memalloc(dev, timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        main = main or (launches, timer.launches)
+        heights = [[p.degree_bits for p in r.proof.stark_proofs]
+                   for r in receipts]
+        log(f"[main] memalloc{MEMALLOC_ARGS} at seg_size 2^16, {label} run: "
+            f"{total} steps, {len(segs)} segment(s), natural heights 2^"
+            f"{heights}; wall {wall:.3f} s ({timer.report()}); launches "
+            f"{launches}; peak device memory {peak:.2f} GiB")
+        got = [segment_record(s, h) for s, h in zip(segs, heights)]
+        want = [{k: r[k] for k in got[0]} for r in record["segments"]]
+        same = (total, len(segs)) == (record["total_steps"],
+                                      record["num_segments"]) and got == want
+        log(f"[main] steps, pc, end_pc, image ids, public values and "
+            f"heights == zkm_tpu's record: {same}")
+        if not same:
+            raise AssertionError(f"memalloc segments differ from the record: "
+                                 f"{got} != {want}")
+        t0 = time.perf_counter()
+        for r in receipts:
+            host.verify_segment_receipt(r)
+        log(f"[main] {label} run's proofs verified by the port's verifier in "
+            f"{time.perf_counter() - t0:.1f} s")
+    all_stark = make_all_stark()
+    for seg, want in zip(segs, record["segments"]):
+        digests = field_digests(host.segment_witness(seg, all_stark,
+                                                     device=dev))
+        same = digests == want["field_digests"]
+        log(f"[main] segment {seg.segment_id} witness field_digests == "
+            f"zkm_tpu's record: {same}")
+        if not same:
+            raise AssertionError("memalloc witness differs from the record: "
+                                 + ", ".join(k for k in digests if digests[k]
+                                             != want["field_digests"][k]))
+    launches, per_step = main
+    k1_proof = launches["poseidon_permute"] - per_step["emulate"][0] \
+        - per_step["witness"][0]
+    if min(per_step["emulate"][0], per_step["witness"][0], k1_proof,
+           launches["goldilocks_ntt"]) == 0:
+        raise AssertionError(f"a kernel was not launched where it must be: "
+                             f"{per_step}")
     if profile:
-        profile_segment(ts, pv, dev, _segment_floors())
+        profile_segment(segs[0], dev)
     return launches
 
 
-def profile_segment(ts, pv, dev, floors) -> None:
-    """Device time per kernel name of a warm hello-height proof under
-    torch.profiler, with the device-busy share of its wall time (the
-    profiler's own overhead is part of that wall)."""
+def profile_segment(seg, dev) -> None:
+    """Device time per kernel name of a warm host.prove_segment of `seg`
+    (witness, trace build, proof) under torch.profiler, with the
+    device-busy share of its wall time (the profiler's own overhead is
+    part of that wall)."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    from zkm_tpu_torch import host
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall, _ = _prove_segment(ts, pv, dev, floors)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host.prove_segment(seg, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     rows_out = []
     for e in prof.key_averages():
         # kernels and copies only: an aten op's own entry repeats the
@@ -495,20 +666,19 @@ def profile_segment(ts, pv, dev, floors) -> None:
             rows_out.append((e.self_device_time_total, e.count, e.key))
     rows_out.sort(reverse=True)
     device_us = sum(r[0] for r in rows_out)
-    log(f"[profile] warm hello-height segment proof under the profiler: "
+    log(f"[profile] warm memalloc prove_segment under the profiler: "
         f"wall {wall * 1e3:.1f} ms, device time {device_us / 1e3:.1f} ms "
         f"(busy share {device_us / 1e4 / wall:.1f}%), "
         f"{sum(r[1] for r in rows_out)} kernels and copies")
     for us, count, key in rows_out[:20]:
         log(f"[profile] {us / 1e3:9.2f} ms {count:7d}x {key[:90]}")
 
-
 def main() -> int:
     import argparse
     import torch
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile a warm hello-height segment proof")
+                        help="also profile a warm phase-6 proof")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -521,7 +691,8 @@ def main() -> int:
     kernels = phase_kernels(rng, dev)
     phase_commits(rng, dev)
     phase_proof(rng, dev)
-    launches = phase_segment(dev, args.profile)
+    phase_segment(dev)
+    launches = phase_main_path(dev, args.profile)
     for name, k in kernels.items():
         k["launches"] = launches[name]
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -371,7 +371,7 @@ def _ctl_zs_first(rows, all_stark):
 def test_ctl_zs_hold_on_frozen_witness_and_fail_when_tampered(toy):
     frozen, _, ref = toy
     all_stark = make_all_stark(SPONGE_SUBSET)
-    rows = host.segment_traces(frozen, all_stark, device="cpu")
+    rows = host.trace_set_traces(frozen, all_stark, device="cpu")
     heights = [r.shape[1].bit_length() - 1 for r in rows]
     assert heights == ref["natural_heights_log2"]
     zs = _ctl_zs_first(rows, all_stark)

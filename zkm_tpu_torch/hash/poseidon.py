@@ -1,17 +1,22 @@
 """Poseidon permutation and plonky2-style hashing over Goldilocks, batched.
 
-Counterpart of `zkm_tpu/hash/poseidon.py`: the Merkle/challenger half and
-the byte sponge's block packing and permutation chain (the emulator's
-`poseidon_bytes` and `sponge_chain_states` are not part of the port yet).
+Counterpart of `zkm_tpu/hash/poseidon.py`: the Merkle/challenger half, and
+the byte sponge of the emulator's page hashing, image ids and the sponge
+table (block packing, permutation chains, `poseidon_bytes`, `hash_pages`).
 A batch of states is an int64 tensor (..., 12).  `permute` runs kernel K1
-(`csrc/poseidon.cu`) for a CUDA tensor and the plain version
-`_permute_plain` for a CPU tensor; every other function here is built on
-`permute`.  The naive partial-round evaluation is used: mathematically
-identical to plonky2's fast partial rounds.
+(`csrc/poseidon.cu`) for a CUDA tensor and a plain version for a CPU
+tensor: `_permute_plain` (torch), or for a few states the pure-Python
+`permute_host`, since torch's per-operation overhead (~15 ms a
+permutation on the CPU) would dominate the byte sponges' long chains of
+small batches.  Every other device function here is built on `permute`;
+the byte-sponge entry points take a `device` and raise without a card
+unless it is "cpu".  The naive partial-round evaluation is used:
+mathematically identical to plonky2's fast partial rounds.
 """
 
 from __future__ import annotations
 
+import operator
 import threading
 from functools import lru_cache
 
@@ -20,6 +25,7 @@ import torch
 
 from .. import native
 from ..convert import to_u64
+from ..device import resolve_device
 from ..field import goldilocks as gl
 from . import poseidon_constants as C
 
@@ -27,6 +33,7 @@ SPONGE_RATE = C.SPONGE_RATE       # 8 field elements
 SPONGE_WIDTH = C.SPONGE_WIDTH     # 12
 DIGEST = 4                        # hash output = 4 field elements
 RATE_BYTES = 4 * SPONGE_RATE      # byte sponge: 8 u32 words per block
+HOST_MAX_STATES = 16              # CPU batches up to this use permute_host
 
 _RC = np.array(C.ALL_ROUND_CONSTANTS, dtype=np.uint64).reshape(C.N_ROUNDS, 12)
 _MDS_IDX = (np.arange(12)[:, None] + np.arange(12)[None, :]) % 12
@@ -110,8 +117,17 @@ def permute(state: torch.Tensor) -> torch.Tensor:
     if state.is_cuda:
         return _permute_cuda(state)
     if state.device.type == "cpu":
+        if state.numel() <= HOST_MAX_STATES * SPONGE_WIDTH:
+            return _permute_host_rows(state)
         return _permute_plain(state)
     raise ValueError(f"unsupported device {state.device}")
+
+
+def _permute_host_rows(state: torch.Tensor) -> torch.Tensor:
+    """`permute_host` on each state of a CPU tensor."""
+    rows = state.reshape(-1, SPONGE_WIDTH).numpy().view(np.uint64).tolist()
+    out = np.array([permute_host(r) for r in rows], dtype=np.uint64)
+    return torch.from_numpy(out.view(np.int64)).view(state.shape)
 
 
 def ops_per_permutation() -> int:
@@ -184,20 +200,77 @@ def bytes_to_rate_blocks(data: bytes) -> np.ndarray:
     return np.frombuffer(bytes(buf), dtype="<u4").reshape(chunks, 8)
 
 
-def chain_states(blocks: np.ndarray, device) -> tuple:
-    """(k, nb, 8) u32 blocks of k sponges -> (pre, post), each (k, nb, 12)
-    u64: the state before block b's rate is overwritten, and the
-    permutation's output after it.  One `permute` per block index, batched
-    over the k sponges (the reference's `_chain_states` scan)."""
+def _chain(blocks: np.ndarray, device) -> tuple:
+    """(k, nb, 8) u32 blocks of k sponges -> (inputs, outputs), each
+    (k, nb, 12) int64 tensors: permutation b's input (block b's words in
+    the rate, the capacity carried) and its output.  One `permute` per
+    block index, batched over the k sponges."""
     k, nb, _ = blocks.shape
     state = torch.zeros((k, SPONGE_WIDTH), dtype=torch.int64, device=device)
     words = torch.from_numpy(blocks.astype(np.int64)).to(device)
-    pre, post = [], []
+    inputs, outputs = [], []
     for b in range(nb):
-        pre.append(state)
-        state = permute(torch.cat([words[:, b], state[:, SPONGE_RATE:]], 1))
-        post.append(state)
-    return to_u64(torch.stack(pre, 1)), to_u64(torch.stack(post, 1))
+        state = torch.cat([words[:, b], state[:, SPONGE_RATE:]], 1)
+        inputs.append(state)
+        state = permute(state)
+        outputs.append(state)
+    return torch.stack(inputs, 1), torch.stack(outputs, 1)
+
+
+def chain_states(blocks: np.ndarray, device) -> tuple:
+    """(k, nb, 8) u32 blocks of k sponges -> (pre, post), each (k, nb, 12)
+    u64: the state before block b's rate is overwritten, and the
+    permutation's output after it (the sponge table's rows; the
+    reference's `tables/poseidon_sponge._chain_states` scan)."""
+    _, post = _chain(blocks, device)
+    pre = torch.cat([torch.zeros_like(post[:, :1]), post[:, :-1]], 1)
+    return to_u64(pre), to_u64(post)
+
+
+def sponge_chain_states(blocks: np.ndarray, device=None) -> tuple:
+    """(..., nb, 8) u32 blocks -> (inputs (..., nb, 12), final (..., 12)),
+    int64 tensors on `device`: `inputs[..., b, :]` is the permutation
+    INPUT of block b (the rate words written, the capacity carried), what
+    the Poseidon table's witness rows record; `final` is the last
+    permutation's output (digest = final[..., :DIGEST]).  Batched over the
+    leading axes, so all page sponges of a level take one launch per block
+    index."""
+    blocks = np.asarray(blocks, dtype=np.uint32)
+    lead, nb = blocks.shape[:-2], blocks.shape[-2]
+    inputs, outputs = _chain(blocks.reshape(-1, nb, SPONGE_RATE),
+                             resolve_device(device))
+    return (inputs.reshape(lead + (nb, SPONGE_WIDTH)),
+            outputs[:, -1].reshape(lead + (SPONGE_WIDTH,)))
+
+
+def sponge_chains_u64(blocks: np.ndarray, device=None) -> tuple:
+    """(P, nb, 8) u32 -> (inputs (P, nb, 12) u64, final (P, 12) u64)."""
+    inputs, final = sponge_chain_states(blocks, device)
+    return to_u64(inputs), to_u64(final)
+
+
+def absorb_rate_blocks(blocks: np.ndarray, device=None) -> torch.Tensor:
+    """(..., nb, 8) u32 blocks -> (..., 4) digests (int64 on `device`):
+    overwrite-mode absorb of each block, a permutation after each."""
+    return sponge_chain_states(blocks, device)[1][..., :DIGEST]
+
+
+def poseidon_bytes(data: bytes, device=None) -> np.ndarray:
+    """Byte sponge (pad10*1) of `data` -> 4 u64 digest words."""
+    return to_u64(absorb_rate_blocks(bytes_to_rate_blocks(data), device))
+
+
+def hash_pages(pages_u32: np.ndarray, device=None) -> np.ndarray:
+    """(npages, 1024) u32 LE words -> (npages, 4) u64 page hashes.  A
+    4096-byte page is a multiple of the rate, so pad10*1 appends one block
+    with first byte 0x01 and last byte 0x80."""
+    pages = np.asarray(pages_u32, dtype=np.uint32).reshape(-1, 1024)
+    n = pages.shape[0]
+    pad = np.zeros((n, 1, SPONGE_RATE), dtype=np.uint32)
+    pad[:, 0, 0] = 1
+    pad[:, 0, 7] = 0x80 << 24      # the block's last byte (LE)
+    blocks = np.concatenate([pages.reshape(n, 128, SPONGE_RATE), pad], 1)
+    return to_u64(absorb_rate_blocks(blocks, device))
 
 
 # ---------------------------------------------------------------------------
@@ -206,31 +279,25 @@ def chain_states(blocks: np.ndarray, device) -> tuple:
 
 _P = gl.P
 _RC_INT = [[int(x) for x in row] for row in _RC]
-_MDS_CIRC_INT = list(C.MDS_MATRIX_CIRC)
-_MDS_DIAG0_INT = C.MDS_MATRIX_DIAG[0]
+_FULL = [r < C.HALF_N_FULL_ROUNDS or
+         r >= C.HALF_N_FULL_ROUNDS + C.N_PARTIAL_ROUNDS
+         for r in range(C.N_ROUNDS)]
+# out[row] = sum_j CIRC[(j - row) % 12] * s[j], plus DIAG0 * s[0] at row 0
+_MDS_ROWS_INT = [[C.MDS_MATRIX_CIRC[(j - row) % 12] for j in range(12)]
+                 for row in range(12)]
+_MDS_ROWS_INT[0][0] += C.MDS_MATRIX_DIAG[0]
 
 
 def permute_host(state):
     """[12 ints] -> [12 ints]; same permutation as `permute`."""
     s = [int(x) for x in state]
-    for r in range(C.N_ROUNDS):
-        rc = _RC_INT[r]
-        is_full = r < C.HALF_N_FULL_ROUNDS or \
-            r >= C.HALF_N_FULL_ROUNDS + C.N_PARTIAL_ROUNDS
-        s = [(v + rc[i]) % _P for i, v in enumerate(s)]
-        if is_full:
+    for rc, full in zip(_RC_INT, _FULL):
+        s = [(v + c) % _P for v, c in zip(s, rc)]
+        if full:
             s = [pow(v, 7, _P) for v in s]
         else:
             s[0] = pow(s[0], 7, _P)
-        out = []
-        for row in range(12):
-            acc = 0
-            for i in range(12):
-                acc += _MDS_CIRC_INT[i] * s[(i + row) % 12]
-            if row == 0:
-                acc += _MDS_DIAG0_INT * s[0]
-            out.append(acc % _P)
-        s = out
+        s = [sum(map(operator.mul, row, s)) % _P for row in _MDS_ROWS_INT]
     return s
 
 

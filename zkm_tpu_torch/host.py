@@ -1,22 +1,32 @@
-"""Host-facing proving API: a segment's witness -> a multi-table proof.
+"""Host-facing proving API: ELF or program -> segments -> multi-table
+proofs.
 
-Counterpart of zkm_tpu/host.py:83-163 (`segment_traces`, `prove_segment`,
-`verify_segment_receipt`) from the witness on: the port has no emulator
-and no witness generation yet, so its input is a `TraceSet`
-(witness/trace_set.py) rather than a `Segment`.
+Counterpart of zkm_tpu/host.py (`SegmentReceipt`,
+`public_values_for_segment`, `segment_traces`, `prove_segment`,
+`verify_segment_receipt`, `check_receipt_chain`, `prove_elf`): execute and
+split a program (emulator/), generate each segment's witness
+(witness/generation.py), build the SPONGE_SUBSET traces and prove them.
+A frozen witness goes in through `prove_trace_set`.  Every entry point
+runs on the card unless it is given device="cpu", and raises without one.
+A `timer` (utils.timing.StepTimer) collects per-step seconds: "emulate",
+"witness", "trace_build" and the prover's steps.
 """
 
 from __future__ import annotations
 
+import hashlib
+from dataclasses import dataclass
 from typing import Dict, List, Optional
 
 import numpy as np
 
 from .convert import traces_from_rows
 from .device import resolve_device
+from .emulator.state import Segment
+from .emulator.utils import load_elf_with_patch, split_prog_into_segs
 from .stark.all_stark import AllStark, Table, make_all_stark
 from .stark.config import StarkConfig
-from .stark.proof import AllProof, PublicValues
+from .stark.proof import AllProof, MemRoots, PublicValues
 from .stark.prover import prove_with_traces
 from .stark.verifier import verify_proof
 from .tables import arithmetic as arith
@@ -25,13 +35,32 @@ from .tables import memory as mem
 from .tables import poseidon
 from .tables import poseidon_sponge as psponge
 from .utils.timing import step
+from .witness.generation import generate_segment_traces
 from .witness.trace_set import TraceSet, pad_cpu_rows
 
 
-def segment_traces(trace_set: TraceSet, all_stark: AllStark,
-                   height_floors: Optional[Dict[Table, int]] = None,
-                   device=None) -> List[np.ndarray]:
-    """Per-table (C, N) u64 trace rows of the subset.
+@dataclass
+class SegmentReceipt:
+    """Proof + public values for one segment (zkMIPS Receipt::Segments)."""
+    proof: AllProof
+    pre_image_id: bytes
+    image_id: bytes
+    userdata: bytes
+
+
+def public_values_for_segment(seg: Segment) -> PublicValues:
+    userdata = hashlib.sha256(
+        seg.input_stream[0] if seg.input_stream else b"").digest()
+    return PublicValues(
+        roots_before=MemRoots.from_image_id(seg.pre_image_id),
+        roots_after=MemRoots.from_image_id(seg.image_id),
+        userdata=userdata)
+
+
+def trace_set_traces(trace_set: TraceSet, all_stark: AllStark,
+                     height_floors: Optional[Dict[Table, int]] = None,
+                     device=None) -> List[np.ndarray]:
+    """Per-table (C, N) u64 trace rows of the subset from a witness.
 
     height_floors: {Table: min_rows} degree buckets; unlisted tables pad to
     their natural power-of-two height (at least 64 rows, Arithmetic at
@@ -60,23 +89,59 @@ def segment_traces(trace_set: TraceSet, all_stark: AllStark,
     return [builders[tab](floor_of(tab)) for tab in all_stark.tables]
 
 
+def segment_witness(seg: Segment, all_stark: AllStark, block_path: str = "",
+                    device=None, timer=None) -> TraceSet:
+    """The segment's witness at natural heights (the page sponges on
+    `device`), timed as "witness"."""
+    dev = resolve_device(device)
+    with step(timer, "witness"):
+        return generate_segment_traces(
+            seg, block_path=block_path,
+            sponge=Table.PoseidonSponge in all_stark.tables, device=dev)
+
+
+def segment_traces(seg: Segment, all_stark: AllStark, block_path: str = "",
+                   height_floors: Optional[Dict[Table, int]] = None,
+                   device=None, timer=None) -> List[np.ndarray]:
+    """Witness generation + per-table trace building for the subset
+    (`trace_set_traces` says how tables are padded)."""
+    dev = resolve_device(device)
+    ts = segment_witness(seg, all_stark, block_path, dev, timer)
+    with step(timer, "trace_build"):
+        return trace_set_traces(ts, all_stark, height_floors, dev)
+
+
 def prove_trace_set(trace_set: TraceSet, pv: PublicValues,
                     config: Optional[StarkConfig] = None,
                     all_stark: Optional[AllStark] = None,
                     height_floors: Optional[Dict[Table, int]] = None,
                     device=None, timer=None) -> AllProof:
-    """Build the subset's traces and prove them (default: SPONGE_SUBSET
-    under standard_fast_config).  Runs on the card unless device='cpu';
-    `timer` (a utils.timing.StepTimer) collects per-step seconds, with
-    the trace build as "trace_build"."""
+    """Build the subset's traces from a witness and prove them (default:
+    SPONGE_SUBSET under standard_fast_config)."""
     dev = resolve_device(device)
     config = config or StarkConfig.standard_fast_config()
     all_stark = all_stark or make_all_stark()
     with step(timer, "trace_build"):
-        rows = segment_traces(trace_set, all_stark, height_floors, dev)
+        rows = trace_set_traces(trace_set, all_stark, height_floors, dev)
     return prove_with_traces(all_stark.starks, config,
                              traces_from_rows(rows, dev), all_stark.ctls, pv,
                              device=dev, timer=timer)
+
+
+def prove_segment(seg: Segment, config: Optional[StarkConfig] = None,
+                  all_stark: Optional[AllStark] = None, block_path: str = "",
+                  height_floors: Optional[Dict[Table, int]] = None,
+                  device=None, timer=None) -> SegmentReceipt:
+    """Re-execute a segment, generate its witness and prove the subset."""
+    dev = resolve_device(device)
+    config = config or StarkConfig.standard_fast_config()
+    all_stark = all_stark or make_all_stark()
+    ts = segment_witness(seg, all_stark, block_path, dev, timer)
+    pv = public_values_for_segment(seg)
+    proof = prove_trace_set(ts, pv, config, all_stark, height_floors, dev,
+                            timer)
+    return SegmentReceipt(proof=proof, pre_image_id=seg.pre_image_id,
+                          image_id=seg.image_id, userdata=pv.userdata)
 
 
 def verify_segment(proof: AllProof, config: Optional[StarkConfig] = None,
@@ -85,3 +150,39 @@ def verify_segment(proof: AllProof, config: Optional[StarkConfig] = None,
     config = config or StarkConfig.standard_fast_config()
     all_stark = all_stark or make_all_stark()
     verify_proof(all_stark.starks, proof, all_stark.ctls, config)
+
+
+def verify_segment_receipt(receipt: SegmentReceipt,
+                           config: Optional[StarkConfig] = None,
+                           all_stark: Optional[AllStark] = None) -> None:
+    verify_segment(receipt.proof, config, all_stark)
+
+
+def check_receipt_chain(receipts: List[SegmentReceipt]) -> None:
+    """Continuation check: each segment's post-state is the next's pre-state
+    (the aggregation circuit's roots_after == roots_before link)."""
+    for a, b in zip(receipts, receipts[1:]):
+        if a.image_id != b.pre_image_id:
+            raise ValueError("segment receipts do not chain")
+        if a.userdata != b.userdata:
+            raise ValueError("userdata mismatch across segments")
+
+
+def prove_elf(elf_path: str, args: List[str] = (),
+              inputs: List[bytes] = (), seg_size: int = 65536,
+              config: Optional[StarkConfig] = None,
+              max_steps: Optional[int] = None, device=None,
+              timer=None) -> List[SegmentReceipt]:
+    """Full pipeline: load the ELF, execute and split it ("emulate"), prove
+    every segment, check the receipts chain."""
+    dev = resolve_device(device)
+    with step(timer, "emulate"):
+        state = load_elf_with_patch(elf_path, list(args), dev)
+        for raw in inputs:
+            state.add_input_stream_bytes(raw)
+        _, segments, _ = split_prog_into_segs(state, None, "", seg_size,
+                                              max_steps=max_steps)
+    receipts = [prove_segment(s, config, device=dev, timer=timer)
+                for s in segments]
+    check_receipt_chain(receipts)
+    return receipts

@@ -31,6 +31,16 @@ OP_AND, OP_OR, OP_XOR, OP_NOR = 0, 1, 2, 3
 _FLAG_COL = {OP_AND: IS_AND, OP_OR: IS_OR, OP_XOR: IS_XOR, OP_NOR: IS_NOR}
 
 
+def op_result(op: int, a: int, b: int) -> int:
+    if op == OP_AND:
+        return a & b
+    if op == OP_OR:
+        return a | b
+    if op == OP_XOR:
+        return a ^ b
+    return (~(a | b)) & U32_MAX
+
+
 def generate_rows(operations: Sequence[Tuple[int, int, int]],
                   min_rows: int = 64) -> np.ndarray:
     """operations: (op, input0, input1) u32 tuples -> (NUM_COLUMNS, N) u64

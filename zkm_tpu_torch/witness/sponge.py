@@ -1,0 +1,256 @@
+"""Sponge op logging + bootstrap/exit kernel hash checks.
+
+Copy of zkm_tpu/witness/sponge.py (zkMIPS prover/src/witness/util.rs
+sponge loggers, cpu/bootstrap_kernel.rs and exit_kernel.rs: the page-hash
+and image-id checks binding the memory image to the proof), without the
+Keccak and SHA loggers, whose tables the port lacks.
+
+Every sponge chain here (a level's pages batched, or one image-id sponge)
+runs through `hash.poseidon.sponge_chains_u64` on the generation state's
+device: one K1 launch per block index on the card.  The reference batches
+only levels of two or more pages and runs the rest through its
+pure-Python permutation; the values are the same.
+
+Word-level deviation (the reference's): every memory read pushed here is
+one op per u32 word (zkMIPS pushes one per *byte*).
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+
+from ..hash import poseidon as ps
+from ..tables.cpu import columns as cc
+from ..tables.memory import SEG_CODE
+from ..tables.poseidon_sponge import PoseidonSpongeOp
+
+PAGE_SIZE = 4096
+WORDS_PER_PAGE = PAGE_SIZE // 4
+HASH_ADDRESS_BASE = 0x8000_0000
+HASH_ADDRESS_END = 0x8102_0000          # root page base address
+ROOT_PAGE_INDEX = HASH_ADDRESS_END >> 12
+ROOT_HASH_ADDRESS_BASE = 0x8102_1000
+REGISTERS_START = 0x8102_0400
+RATE_BYTES = ps.RATE_BYTES              # 32
+SPONGE_RATE = ps.SPONGE_RATE            # 8
+
+
+def _digest_bytes(digest_u64s: List[int]) -> bytes:
+    return b"".join(int(x).to_bytes(8, "little") for x in digest_u64s)
+
+
+def _chains(s, blocks: np.ndarray):
+    """(k, nb, 8) u32 blocks -> (inputs (k, nb, 12), final (k, 12)) u64."""
+    return ps.sponge_chains_u64(blocks, s.device)
+
+
+def poseidon_sponge_log(s, base_addresses: List[Tuple[int, int, int]],
+                        input_bytes: bytes, precomputed=None) -> List[int]:
+    """Log one sponge op: word-level memory reads at the current clock,
+    one Poseidon permutation input per rate block, and the sponge-table op.
+    Returns the 4-limb digest (witness/util.rs:370-468).
+
+    precomputed: (inputs (nb, 12) u64, final (12,) u64), the op's chain
+    from a batch of page sponges; without it the chain runs here."""
+    assert len(input_bytes) % 4 == 0, "sponge inputs must be word-aligned"
+    ts = s.clock() * cc.NUM_CHANNELS
+    nwords = len(input_bytes) // 4
+    assert len(base_addresses) == nwords
+    for i, (ctx, seg, virt) in enumerate(base_addresses):
+        v = int.from_bytes(input_bytes[4 * i:4 * i + 4], "big")
+        got = s.mget(ctx, seg, virt)
+        assert got == v, (
+            f"sponge read mismatch at {virt:#x}: mem {got:#x} != {v:#x}")
+        s._push_mem(True, True, ctx, seg, virt, v)
+
+    s.t.poseidon_sponge_ops.append(PoseidonSpongeOp(
+        base_address=list(base_addresses), timestamp=ts,
+        input=bytes(input_bytes)))
+
+    if precomputed is None:
+        inputs, final = _chains(s, ps.bytes_to_rate_blocks(input_bytes)[None])
+        precomputed = inputs[0], final[0]
+    inputs_u64, final_u64 = precomputed
+    for b in range(inputs_u64.shape[0]):
+        s.t.poseidon_inputs.append(([int(x) for x in inputs_u64[b]], ts))
+    return [int(x) for x in final_u64[:ps.DIGEST]]
+
+
+def _sponge_cpu_row(s, base_addresses, input_bytes: bytes, *,
+                    bootstrap: bool, precomputed=None) -> bytes:
+    """Push the CPU row carrying a sponge op's CTL view; returns the raw
+    digest bytes (bootstrap_kernel.rs:134-179 / :277-302)."""
+    row = s.new_row()
+    if bootstrap:
+        row[cc.IS_BOOTSTRAP_KERNEL] = 1
+    else:
+        row[cc.IS_EXIT_KERNEL] = 1
+        row[cc.PROGRAM_COUNTER] = s.pc
+        row[cc.NEXT_PROGRAM_COUNTER] = s.next_pc
+    row[cc.IS_POSEIDON_SPONGE] = 1
+
+    final_index = (len(input_bytes) // RATE_BYTES) * SPONGE_RATE
+    virt = base_addresses[final_index][2] \
+        if final_index < len(base_addresses) else 0
+    s.push_no_write(row, 0, base_addresses[0][0])   # context
+    s.push_no_write(row, 1, base_addresses[0][1])   # segment
+    s.push_no_write(row, 2, virt)
+    s.push_no_write(row, 3, len(input_bytes))
+
+    digest = poseidon_sponge_log(s, base_addresses, input_bytes,
+                                 precomputed=precomputed)
+    for i, c in enumerate(cc.HASH_VALUE):
+        row[c] = digest[i]
+    s.push_row(row)
+    return _digest_bytes(digest)
+
+
+def _page_bytes(s, page_addr: int) -> Tuple[List, bytes]:
+    addrs = [(0, SEG_CODE, page_addr + 4 * i) for i in range(WORDS_PER_PAGE)]
+    data = b"".join(
+        s.mget(0, SEG_CODE, a).to_bytes(4, "big") for (_, _, a) in addrs)
+    return addrs, data
+
+
+def _check_page_hash(s, seg, page_addr: int, update: bool, precomputed):
+    """Sponge the page's current content (its chain `precomputed`); at
+    bootstrap, assert it matches the stored (pre-state) hash; at exit,
+    write the new hash into the parent hash page (bootstrap_kernel.rs
+    check_memory_page_hash)."""
+    addrs, data = _page_bytes(s, page_addr)
+
+    if update and page_addr != HASH_ADDRESS_END:
+        # write the new hash words before hashing the page's parent
+        # (sorted page order guarantees parent hashes later)
+        raw = _digest_bytes([int(x) for x in precomputed[1][:ps.DIGEST]])
+        hash_addr = HASH_ADDRESS_BASE + ((page_addr >> 12) << 5)
+        writes = [(hash_addr + 4 * j,
+                   int.from_bytes(raw[4 * j:4 * j + 4], "big"))
+                  for j in range(8)]
+        _write_words(s, writes, bootstrap=False)
+
+    digest_raw = _sponge_cpu_row(s, addrs, data, bootstrap=not update,
+                                 precomputed=precomputed)
+
+    if page_addr == HASH_ADDRESS_END:
+        expected = seg.page_hash_root if update else seg.pre_hash_root
+        assert digest_raw == expected, \
+            f"root page hash mismatch ({'post' if update else 'pre'})"
+    elif not update:
+        hash_addr = HASH_ADDRESS_BASE + ((page_addr >> 12) << 5)
+        expected = b"".join(
+            s.mget(0, SEG_CODE, hash_addr + 4 * j).to_bytes(4, "big")
+            for j in range(8))
+        assert digest_raw == expected, \
+            f"page hash mismatch at {page_addr:#x}"
+
+
+def _write_words(s, addr_vals: List[Tuple[int, int]], *, bootstrap: bool):
+    """Memory writes in chunks of 8 GP channels per CPU row."""
+    for base in range(0, len(addr_vals), 8):
+        row = s.new_row()
+        if bootstrap:
+            row[cc.IS_BOOTSTRAP_KERNEL] = 1
+        else:
+            row[cc.IS_EXIT_KERNEL] = 1
+            row[cc.PROGRAM_COUNTER] = s.pc
+            row[cc.NEXT_PROGRAM_COUNTER] = s.next_pc
+        for channel, (addr, val) in enumerate(addr_vals[base:base + 8]):
+            s.mem_write_gp(channel, addr, row, val)
+        s.push_row(row)
+
+
+def _check_image_id(s, seg, post: bool):
+    """Write the 9 image-id input words and sponge them
+    (bootstrap_kernel.rs check_image_id)."""
+    root = seg.page_hash_root if post else seg.pre_hash_root
+    pc = seg.end_pc if post else seg.pc
+    words = [int.from_bytes(root[4 * i:4 * i + 4], "little")
+             for i in range(8)]
+    words.append(int.from_bytes((pc & 0xFFFFFFFF).to_bytes(4, "little"),
+                                "big"))
+    addr_vals = [(ROOT_HASH_ADDRESS_BASE + 4 * i, w)
+                 for i, w in enumerate(words)]
+    _write_words(s, addr_vals, bootstrap=not post)
+
+    addrs = [(0, SEG_CODE, a) for a, _ in addr_vals]
+    data = b"".join(w.to_bytes(4, "big") for w in words)
+    digest_raw = _sponge_cpu_row(s, addrs, data, bootstrap=not post)
+    expected = seg.image_id if post else seg.pre_image_id
+    assert digest_raw == expected, \
+        f"image id mismatch ({'post' if post else 'pre'})"
+
+
+def _precompute_sponges(s, pages: List[int]):
+    """The page-sponge chains of `pages` (page indices) in one batch;
+    returns {page_index: (inputs (nb, 12) u64, final (12,) u64)}."""
+    if not pages:
+        return {}
+    blocks = np.stack([ps.bytes_to_rate_blocks(
+        _page_bytes(s, p << 12)[1]) for p in pages])
+    inputs, final = _chains(s, blocks)
+    return {p: (inputs[i], final[i]) for i, p in enumerate(pages)}
+
+
+def bootstrap_hash_checks(s):
+    """Page-hash + pre-image-id sponge rows (bootstrap_kernel.rs:63-71).
+
+    The final bootstrap row is the image-id sponge row (no used channels,
+    satisfying the bootstrap-terminator constraint)."""
+    seg = s.seg
+    pages = sorted({a >> 12 for a in s.image})
+    # bootstrap performs no writes, so every page chain can precompute
+    pre = _precompute_sponges(s, pages)
+    for page_addr in pages:
+        _check_page_hash(s, seg, page_addr << 12, update=False,
+                         precomputed=pre[page_addr])
+    _check_image_id(s, seg, post=False)
+
+
+def exit_kernel_checks(s, seg):
+    """End-pc pin, register sync, page re-hash, post-image-id
+    (exit_kernel.rs:22-86).  The sponge rows (re-hash + image id) are
+    gated on the PoseidonSponge table being registered; the end-pc row and
+    register sync are unconditional (they need only CPU + Memory)."""
+    assert s.pc == seg.end_pc, \
+        f"exit pc {s.pc:#x} != segment end pc {seg.end_pc:#x}"
+
+    # end-pc row: channel 0 carries end_pc into the delta_is_exit constraint
+    row = s.new_row()
+    row[cc.IS_KERNEL_MODE] = 1
+    row[cc.PROGRAM_COUNTER] = s.pc
+    row[cc.NEXT_PROGRAM_COUNTER] = s.next_pc
+    s.reg_write(0, 0, seg.end_pc, row)
+    s.push_row(row)
+
+    # sync registers into the root page (exit_kernel.rs:42-75)
+    regs = [v & 0xFFFFFFFF for v in s.regs]
+    regs[35] = s.pc
+    regs[36] = s.next_pc
+    addr_vals = [(REGISTERS_START + 4 * i, v) for i, v in enumerate(regs)]
+    _write_words(s, addr_vals, bootstrap=False)
+
+    if not s.sponge_enabled:
+        return
+    # re-hash every image page with post-state content, then post image id.
+    # A page's re-hash writes its digest into its PARENT hash page, so a
+    # level's contents are final once every child level is done: process
+    # level by level (data pages -> level-1 -> level-2 -> root), batching
+    # each level's sponge chains.
+    pages = sorted({a >> 12 for a in s.image})
+    levels = [
+        [p for p in pages if (p << 12) < HASH_ADDRESS_BASE],
+        [p for p in pages
+         if HASH_ADDRESS_BASE <= (p << 12) < 0x8100_0000],
+        [p for p in pages if 0x8100_0000 <= (p << 12) < HASH_ADDRESS_END],
+        [p for p in pages if (p << 12) >= HASH_ADDRESS_END],
+    ]
+    assert sum(len(lv) for lv in levels) == len(pages)
+    for level in levels:
+        pre = _precompute_sponges(s, level)
+        for page_addr in level:
+            _check_page_hash(s, seg, page_addr << 12, update=True,
+                             precomputed=pre[page_addr])
+    _check_image_id(s, seg, post=True)

@@ -1,10 +1,9 @@
 """A segment's witness: what the per-table trace builders consume.
 
 The fields of zkm_tpu/witness/generation.py's `TraceSet` that the
-SPONGE_SUBSET tables read, a frozen-file format for them, and the CPU
-table's padding.  The port has no witness generation yet: a `TraceSet`
-comes from a file that the reference wrote (`load_npz`), and witness
-generation, when ported, returns the same object.
+SPONGE_SUBSET tables read, a frozen-file format for them, the CPU table's
+padding and digests of a whole witness.  A `TraceSet` comes from witness
+generation (witness/generation.py) or from a file (`load_npz`).
 
 The npz holds integer arrays only:
   cpu_rows             (n, 260) u64, natural height (ends in pad rows)
@@ -22,6 +21,7 @@ The npz holds integer arrays only:
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 from dataclasses import dataclass, field
@@ -80,11 +80,11 @@ def _offsets(lengths) -> np.ndarray:
         np.uint64)
 
 
-def save_npz(path: str, ts: TraceSet) -> None:
+def pack(ts) -> dict:
+    """The npz's arrays of a TraceSet (of either package)."""
     u64 = np.uint64
     sponge = ts.poseidon_sponge_ops
-    np.savez_compressed(
-        path,
+    return dict(
         cpu_rows=np.asarray(ts.cpu_rows, dtype=u64),
         memory_ops=np.array(
             [(op.filter, op.timestamp, op.is_read, op.context, op.segment,
@@ -105,6 +105,22 @@ def save_npz(path: str, ts: TraceSet) -> None:
                                   dtype=u64).reshape(-1, 3),
         sponge_address_offsets=_offsets([len(op.base_address)
                                          for op in sponge]))
+
+
+def save_npz(path: str, ts: TraceSet) -> None:
+    np.savez_compressed(path, **pack(ts))
+
+
+def field_digests(ts) -> dict:
+    """{npz array name: sha256 hex of its dtype, shape and bytes}: a whole
+    witness in a few hundred bytes."""
+    out = {}
+    for name, arr in pack(ts).items():
+        arr = np.ascontiguousarray(arr)
+        h = hashlib.sha256(f"{arr.dtype.str} {arr.shape} ".encode())
+        h.update(arr.tobytes())
+        out[name] = h.hexdigest()
+    return out
 
 
 def load_npz(path: str) -> TraceSet:
