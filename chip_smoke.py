@@ -30,9 +30,26 @@ Phases (any failure exits nonzero):
      peak device memory; the segment and its witness must match zkm_tpu's
      record (zkm_tpu_torch/data/memalloc_segment_reference.json); with
      --profile also a warm host.prove_segment of that segment under
-     torch.profiler: device-busy share and device time per kernel name.
+     torch.profiler: device-busy share and device time per kernel name;
+  7. all 12 tables and 15 CTLs (FULL_SUBSET): (a) the full guest
+     (runtime.examples.build_full_guest, every table family) split at 2^20
+     and proved by host.prove_segment at natural heights: its witness's
+     field digests, public values, heights and flattened sha256 must equal
+     zkm_tpu's record (zkm_tpu_torch/data/full_segment_reference.json);
+     the port's verifier accepts the proof and rejects a tampered copy,
+     and a proof with debug=True (each table's constraints checked on its
+     rows first) has the same digest; (b) the slice's main path: the
+     hash-heavy guest (runtime.examples.build_hash_guest: 12 keccak256s of
+     a 4000-byte input, 128 chained SHA-256 blocks) split at 2^16 cycles
+     into one segment whose Keccak and ShaCompress tables hold 2^14 rows,
+     proved end to end, a first and a warm run, each verified, with
+     per-step times, K1/K2 launches and peak device memory per step and
+     each table's quotient buffer; the segment and its witness must match
+     zkm_tpu's record (zkm_tpu_torch/data/hash_segment_reference.json);
+     with --profile also a warm host.prove_segment of it under
+     torch.profiler.
 The line before the last is {"kernels": [...]}, with the launches of the
-first phase-6 run; the last line is {"ok": true, "device": {...}}.
+first phase-7b run; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -76,6 +93,7 @@ TOY_PROGRAM = (0x24080005, 0x2409000A, 0x01095020, 0x3508BEEF, 0x01096824,
                0x01097025, 0xAE2A0000, 0x8E2B0000, 0x24021096, 0x24040000,
                0x0000000C)
 MEMALLOC_ARGS, MEMALLOC_SEG_SIZE = (64, 64), 1 << 16
+FULL_SEG_SIZE, HASH_SEG_SIZE = 1 << 20, 1 << 16
 
 
 def log(msg: str) -> None:
@@ -84,29 +102,41 @@ def log(msg: str) -> None:
 
 class LaunchTimer:
     """Per-step wall seconds (utils.timing.StepTimer) and K1/K2 launches,
-    for the host functions' `timer` argument."""
+    for the host functions' `timer` argument; with step_peaks also each
+    step's peak device memory (the peak statistics are reset as each step
+    starts, so a caller reads the run's peak as the largest of them)."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, step_peaks: bool = False):
         from zkm_tpu_torch.utils.timing import StepTimer
         self.timer = StepTimer(dev)
         self.seconds = self.timer.seconds
         self.launches = {}
+        self.step_peaks = step_peaks
+        self.peak_gib = {}
 
     @contextlib.contextmanager
     def step(self, name: str):
+        import torch
         from zkm_tpu_torch.field import ntt
         from zkm_tpu_torch.hash import poseidon as ps
         k1, k2 = ps.LAUNCHES, ntt.LAUNCHES
+        if self.step_peaks:
+            torch.cuda.reset_peak_memory_stats()
         with self.timer.step(name):
             yield
         got = self.launches.setdefault(name, [0, 0])
         got[0] += ps.LAUNCHES - k1
         got[1] += ntt.LAUNCHES - k2
+        if self.step_peaks:
+            self.peak_gib[name] = max(self.peak_gib.get(name, 0.0),
+                                      torch.cuda.max_memory_allocated() / 2**30)
 
     def report(self) -> str:
         return ", ".join(
             f"{k} {v * 1e3:.1f} ms (K1 {self.launches[k][0]}, K2 "
-            f"{self.launches[k][1]})" for k, v in self.seconds.items())
+            f"{self.launches[k][1]}"
+            + (f", peak {self.peak_gib[k]:.2f} GiB" if k in self.peak_gib
+               else "") + ")" for k, v in self.seconds.items())
 
 
 def reset_launches() -> None:
@@ -450,7 +480,7 @@ def _same_witness(a, b) -> bool:
         a[k].shape == b[k].shape and np.array_equal(a[k], b[k]) for k in a)
 
 
-def _reject_tampered(proof) -> str:
+def _reject_tampered(proof, all_stark=None) -> str:
     """The port's verifier on a copy with one Cpu opening changed; returns
     its error."""
     import copy
@@ -459,7 +489,7 @@ def _reject_tampered(proof) -> str:
     vals = bad.stark_proofs[1].proof.openings.local_values
     vals[0, 0] = (int(vals[0, 0]) + 1) % P
     try:
-        host.verify_segment(bad)
+        host.verify_segment(bad, all_stark=all_stark)
     except ValueError as e:
         return str(e)
     raise AssertionError("the verifier accepted a tampered proof")
@@ -641,7 +671,7 @@ def phase_main_path(dev, profile: bool) -> dict:
     return launches
 
 
-def profile_segment(seg, dev) -> None:
+def profile_segment(seg, dev, all_stark=None, label="memalloc") -> None:
     """Device time per kernel name of a warm host.prove_segment of `seg`
     (witness, trace build, proof) under torch.profiler, with the
     device-busy share of its wall time (the profiler's own overhead is
@@ -655,7 +685,7 @@ def profile_segment(seg, dev) -> None:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        host.prove_segment(seg, device=dev)
+        host.prove_segment(seg, all_stark=all_stark, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows_out = []
@@ -666,19 +696,191 @@ def profile_segment(seg, dev) -> None:
             rows_out.append((e.self_device_time_total, e.count, e.key))
     rows_out.sort(reverse=True)
     device_us = sum(r[0] for r in rows_out)
-    log(f"[profile] warm memalloc prove_segment under the profiler: "
+    log(f"[profile] warm {label} prove_segment under the profiler: "
         f"wall {wall * 1e3:.1f} ms, device time {device_us / 1e3:.1f} ms "
         f"(busy share {device_us / 1e4 / wall:.1f}%), "
         f"{sum(r[1] for r in rows_out)} kernels and copies")
     for us, count, key in rows_out[:20]:
         log(f"[profile] {us / 1e3:9.2f} ms {count:7d}x {key[:90]}")
 
+
+def _split(prog: bytes, inputs, seg_size: int, dev):
+    """(total steps, segments) of a program split by the port's emulator
+    on `dev`."""
+    from zkm_tpu_torch.emulator.state import State
+    from zkm_tpu_torch.emulator.utils import split_prog_into_segs
+    st = State(dev)
+    st.memory.set_memory_range(0, prog)
+    for raw in inputs:
+        st.add_input_stream_bytes(raw)
+    total, segs, _ = split_prog_into_segs(st, seg_size=seg_size)
+    return total, segs
+
+
+def _check_witness(seg, all_stark, want: dict, dev, label: str) -> None:
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.witness.trace_set import field_digests
+    digests = field_digests(host.segment_witness(seg, all_stark, device=dev))
+    same = digests == want
+    log(f"[witness] {label}: all {len(want)} field_digests == "
+        f"zkm_tpu's record: {same}")
+    if not same:
+        raise AssertionError(f"{label} witness differs from the record: "
+                             + ", ".join(k for k in set(digests) | set(want)
+                                         if digests.get(k) != want.get(k)))
+
+
+@contextlib.contextmanager
+def quotient_buffers(out: list):
+    """Records (slots, points) of every scheduled constraint evaluation
+    (one per table and proof, in table order): its value buffer holds
+    slots x points int64 values."""
+    from zkm_tpu_torch.stark import expr
+    plain = expr.evaluate_scheduled
+
+    def recording(sched, trace, *args, **kwargs):
+        out.append((sched.n_slots, trace.shape[-1]))
+        return plain(sched, trace, *args, **kwargs)
+    expr.evaluate_scheduled = recording
+    try:
+        yield out
+    finally:
+        expr.evaluate_scheduled = plain
+
+
+def check_full_segment(dev) -> None:
+    """Phase 7a: the full guest at natural heights under FULL_SUBSET against
+    zkm_tpu's record, verified, a tampered copy rejected, and the same
+    digest with debug=True."""
+    import torch
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.runtime.examples import build_full_guest
+    from zkm_tpu_torch.stark.all_stark import FULL_SUBSET, make_all_stark
+    from zkm_tpu_torch.stark.proof import flat_sha256, flatten_proof
+    from zkm_tpu_torch.witness.trace_set import DATA
+
+    with open(os.path.join(DATA, "full_segment_reference.json")) as f:
+        record = json.load(f)
+    all_stark = make_all_stark(FULL_SUBSET)
+    timer = LaunchTimer(dev)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with timer.step("emulate"):
+        total, segs = _split(build_full_guest(), (), FULL_SEG_SIZE, dev)
+    receipt = host.prove_segment(segs[0], all_stark=all_stark, device=dev,
+                                 timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    heights = [p.degree_bits for p in receipt.proof.stark_proofs]
+    digest = flat_sha256(flatten_proof(receipt.proof))
+    want = record["segment"]
+    got = segment_record(segs[0], heights)
+    same = (total, len(segs)) == (record["total_steps"], 1) and \
+        got == {k: want[k] for k in got}
+    log(f"[full] full guest -> prove_segment(FULL_SUBSET), 12 tables and "
+        f"{len(all_stark.ctls)} CTLs at natural heights 2^{heights}: "
+        f"{wall:.3f} s ({timer.report()}); launches {launches}")
+    log(f"[full] steps, image ids, public values and heights == zkm_tpu's "
+        f"record: {same}; flattened sha256 {digest} == zkm_tpu's "
+        f"{record['sha256_flat']}: {digest == record['sha256_flat']}")
+    if not same or digest != record["sha256_flat"]:
+        raise AssertionError("full guest's proof differs from zkm_tpu's")
+    _check_witness(segs[0], all_stark, want["field_digests"], dev,
+                   "full guest")
+    host.verify_segment_receipt(receipt, all_stark=all_stark)
+    log(f"[full] verified by the port's verifier; a copy with one Cpu "
+        f"opening changed is rejected "
+        f"({_reject_tampered(receipt.proof, all_stark)})")
+    t0 = time.perf_counter()
+    debug = host.prove_segment(segs[0], all_stark=all_stark, device=dev,
+                               debug=True)
+    debug_digest = flat_sha256(flatten_proof(debug.proof))
+    log(f"[full] debug=True (constraints checked on every table's rows): "
+        f"{time.perf_counter() - t0:.3f} s, same digest: "
+        f"{debug_digest == digest}")
+    if debug_digest != digest:
+        raise AssertionError("debug=True changed the proof")
+
+
+def phase_hash_segment(dev, profile: bool) -> dict:
+    """Phase 7b, this slice's main path: the hash-heavy guest end to end
+    under FULL_SUBSET, a first and a warm run, each verified and held
+    against zkm_tpu's record.  Returns the first run's launches."""
+    import torch
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.runtime.examples import (build_hash_guest,
+                                                hash_guest_input)
+    from zkm_tpu_torch.stark.all_stark import FULL_SUBSET, make_all_stark
+    from zkm_tpu_torch.utils.timing import step
+    from zkm_tpu_torch.witness.trace_set import DATA
+
+    with open(os.path.join(DATA, "hash_segment_reference.json")) as f:
+        record = json.load(f)
+    all_stark = make_all_stark(FULL_SUBSET)
+    prog, inputs = build_hash_guest(), (hash_guest_input(),)
+    main = None
+    for label in ("first", "warm"):
+        timer = LaunchTimer(dev, step_peaks=True)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with quotient_buffers([]) as buffers:
+            with step(timer, "emulate"):
+                total, segs = _split(prog, inputs, HASH_SEG_SIZE, dev)
+            receipts = [host.prove_segment(s, all_stark=all_stark,
+                                           device=dev, timer=timer)
+                        for s in segs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        main = main or (launches, timer.launches)
+        heights = [[p.degree_bits for p in r.proof.stark_proofs]
+                   for r in receipts]
+        log(f"[hash] build_hash_guest() at seg_size 2^16, {label} run: "
+            f"{total} steps, {len(segs)} segment(s), natural heights 2^"
+            f"{heights}; wall {wall:.3f} s ({timer.report()}); launches "
+            f"{launches}; peak device memory "
+            f"{max(timer.peak_gib.values()):.2f} GiB")
+        log("[hash] quotient buffers: " + ", ".join(
+            f"{t.name} {s} slots x {m} points = {s * m * 8 / 2**30:.2f} GiB"
+            for t, (s, m) in zip(all_stark.tables, buffers)))
+        got = [segment_record(s, h) for s, h in zip(segs, heights)]
+        want = [{k: r[k] for k in got[0]} for r in record["segments"]]
+        same = (total, len(segs)) == (record["total_steps"],
+                                      record["num_segments"]) and got == want
+        log(f"[hash] steps, pc, end_pc, image ids, public values and "
+            f"heights == zkm_tpu's record: {same}")
+        if not same:
+            raise AssertionError(f"hash segment differs from the record: "
+                                 f"{got} != {want}")
+        t0 = time.perf_counter()
+        for r in receipts:
+            host.verify_segment_receipt(r, all_stark=all_stark)
+        log(f"[hash] {label} run's proofs verified by the port's verifier "
+            f"in {time.perf_counter() - t0:.1f} s")
+    for seg, want in zip(segs, record["segments"]):
+        _check_witness(seg, all_stark, want["field_digests"], dev,
+                       f"hash segment {seg.segment_id}")
+    launches, per_step = main
+    k1_proof = launches["poseidon_permute"] - per_step["emulate"][0] \
+        - per_step["witness"][0]
+    if min(per_step["emulate"][0], per_step["witness"][0], k1_proof,
+           launches["goldilocks_ntt"]) == 0:
+        raise AssertionError(f"a kernel was not launched where it must be: "
+                             f"{per_step}")
+    if profile:
+        profile_segment(segs[0], dev, all_stark, "hash segment")
+    return launches
+
+
 def main() -> int:
     import argparse
     import torch
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile a warm phase-6 proof")
+                        help="also profile warm phase-6 and 7b proofs")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -692,7 +894,9 @@ def main() -> int:
     phase_commits(rng, dev)
     phase_proof(rng, dev)
     phase_segment(dev)
-    launches = phase_main_path(dev, args.profile)
+    phase_main_path(dev, args.profile)
+    check_full_segment(dev)
+    launches = phase_hash_segment(dev, args.profile)
     for name, k in kernels.items():
         k["launches"] = launches[name]
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -254,9 +254,14 @@ def test_quotient_values_match_reference(table, points):
     of them either way), with the real SPONGE_SUBSET CTL layout, lookups
     and (Cpu) 16 random publics, against zkm_tpu's generic constraint code
     on its host algebra point by point (the verifier's path)."""
+    assert_quotient_matches_reference(table, points, SPONGE_SUBSET)
+
+
+def assert_quotient_matches_reference(table, points, subset):
+    """The check above for `table` with the CTL layout of `subset`."""
     tab = Table[table]
-    mine_all, ref_all = make_all_stark(SPONGE_SUBSET), rall.make_all_stark(
-        rall.SPONGE_SUBSET)
+    mine_all = make_all_stark(subset)
+    ref_all = rall.make_all_stark([rall.Table[t.name] for t in subset])
     stark = mine_all.starks[mine_all.tables.index(tab)]
     ref_stark = ref_all.starks[ref_all.tables.index(rall.Table[table])]
     assert type(stark).__name__ == type(ref_stark).__name__
@@ -354,7 +359,14 @@ def test_ctl_topology_matches_reference(subset):
     assert len(mine.ctls) == {"sponge": 6, "default": 3}.get(subset, 1)
 
 
-def test_unported_table_is_named():
+def test_unported_table_is_named(monkeypatch):
+    """All 12 tables are ported; a table missing from IMPLEMENTED would be
+    named."""
+    from zkm_tpu_torch.stark import all_stark
+    assert set(all_stark.IMPLEMENTED) == set(Table)
+    make_all_stark([Table.Cpu, Table.Keccak, Table.ShaCompress])
+    for t in (Table.Keccak, Table.ShaCompress):
+        monkeypatch.delitem(all_stark.IMPLEMENTED, t)
     with pytest.raises(NotImplementedError, match="Keccak, ShaCompress"):
         make_all_stark([Table.Cpu, Table.Keccak, Table.ShaCompress])
 

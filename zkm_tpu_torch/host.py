@@ -5,7 +5,8 @@ Counterpart of zkm_tpu/host.py (`SegmentReceipt`,
 `public_values_for_segment`, `segment_traces`, `prove_segment`,
 `verify_segment_receipt`, `check_receipt_chain`, `prove_elf`): execute and
 split a program (emulator/), generate each segment's witness
-(witness/generation.py), build the SPONGE_SUBSET traces and prove them.
+(witness/generation.py), build the traces of a subset of the 12 tables
+(SPONGE_SUBSET by default, FULL_SUBSET for all) and prove them.
 A frozen witness goes in through `prove_trace_set`.  Every entry point
 runs on the card unless it is given device="cpu", and raises without one.
 A `timer` (utils.timing.StepTimer) collects per-step seconds: "emulate",
@@ -30,10 +31,16 @@ from .stark.proof import AllProof, MemRoots, PublicValues
 from .stark.prover import prove_with_traces
 from .stark.verifier import verify_proof
 from .tables import arithmetic as arith
+from .tables import keccak as keccak_tab
+from .tables import keccak_sponge as ksponge
 from .tables import logic
 from .tables import memory as mem
 from .tables import poseidon
 from .tables import poseidon_sponge as psponge
+from .tables import sha_compress as shac
+from .tables import sha_compress_sponge as shacs
+from .tables import sha_extend as shae
+from .tables import sha_extend_sponge as shaes
 from .utils.timing import step
 from .witness.generation import generate_segment_traces
 from .witness.trace_set import TraceSet, pad_cpu_rows
@@ -64,7 +71,8 @@ def trace_set_traces(trace_set: TraceSet, all_stark: AllStark,
 
     height_floors: {Table: min_rows} degree buckets; unlisted tables pad to
     their natural power-of-two height (at least 64 rows, Arithmetic at
-    least RANGE_MIN_ROWS, PoseidonSponge at least MIN_ROWS).  Padding rows
+    least RANGE_MIN_ROWS, PoseidonSponge and KeccakSponge at least their
+    MIN_ROWS, ShaCompress at least 128).  Padding rows
     are each table's own, so a proof stays valid at any floor.  The sponge
     chains of the PoseidonSponge builder run on the card unless
     device='cpu'."""
@@ -83,6 +91,18 @@ def trace_set_traces(trace_set: TraceSet, all_stark: AllStark,
         Table.PoseidonSponge: lambda f: psponge.generate_rows(
             t.poseidon_sponge_ops, min_rows=max(f, psponge.MIN_ROWS),
             device=device),
+        Table.Keccak: lambda f: keccak_tab.generate_rows(
+            t.keccak_inputs, min_rows=f),
+        Table.KeccakSponge: lambda f: ksponge.generate_rows(
+            t.keccak_sponge_ops, min_rows=max(f, ksponge.MIN_ROWS)),
+        Table.ShaExtend: lambda f: shae.generate_rows(
+            t.sha_extend_ops, min_rows=f),
+        Table.ShaExtendSponge: lambda f: shaes.generate_rows(
+            t.sha_extend_ops, min_rows=f),
+        Table.ShaCompress: lambda f: shac.generate_rows(
+            t.sha_compress_ops, min_rows=max(f, 128)),
+        Table.ShaCompressSponge: lambda f: shacs.generate_rows(
+            t.sha_compress_ops, min_rows=f),
         Table.Logic: lambda f: logic.generate_rows(t.logic_ops, min_rows=f),
         Table.Memory: lambda f: mem.generate_rows(t.memory_ops, min_rows=f),
     }
@@ -92,12 +112,15 @@ def trace_set_traces(trace_set: TraceSet, all_stark: AllStark,
 def segment_witness(seg: Segment, all_stark: AllStark, block_path: str = "",
                     device=None, timer=None) -> TraceSet:
     """The segment's witness at natural heights (the page sponges on
-    `device`), timed as "witness"."""
+    `device`), with the sponge ops of the subset's sponge tables, timed as
+    "witness"."""
     dev = resolve_device(device)
     with step(timer, "witness"):
         return generate_segment_traces(
             seg, block_path=block_path,
-            sponge=Table.PoseidonSponge in all_stark.tables, device=dev)
+            sponge=Table.PoseidonSponge in all_stark.tables,
+            keccak=Table.KeccakSponge in all_stark.tables,
+            sha=Table.ShaExtendSponge in all_stark.tables, device=dev)
 
 
 def segment_traces(seg: Segment, all_stark: AllStark, block_path: str = "",
@@ -115,9 +138,10 @@ def prove_trace_set(trace_set: TraceSet, pv: PublicValues,
                     config: Optional[StarkConfig] = None,
                     all_stark: Optional[AllStark] = None,
                     height_floors: Optional[Dict[Table, int]] = None,
-                    device=None, timer=None) -> AllProof:
+                    device=None, timer=None, debug: bool = False) -> AllProof:
     """Build the subset's traces from a witness and prove them (default:
-    SPONGE_SUBSET under standard_fast_config)."""
+    SPONGE_SUBSET under standard_fast_config).  With `debug` each table's
+    constraints are checked on its rows first (the proof is the same)."""
     dev = resolve_device(device)
     config = config or StarkConfig.standard_fast_config()
     all_stark = all_stark or make_all_stark()
@@ -125,13 +149,14 @@ def prove_trace_set(trace_set: TraceSet, pv: PublicValues,
         rows = trace_set_traces(trace_set, all_stark, height_floors, dev)
     return prove_with_traces(all_stark.starks, config,
                              traces_from_rows(rows, dev), all_stark.ctls, pv,
-                             device=dev, timer=timer)
+                             device=dev, timer=timer, debug=debug)
 
 
 def prove_segment(seg: Segment, config: Optional[StarkConfig] = None,
                   all_stark: Optional[AllStark] = None, block_path: str = "",
                   height_floors: Optional[Dict[Table, int]] = None,
-                  device=None, timer=None) -> SegmentReceipt:
+                  device=None, timer=None,
+                  debug: bool = False) -> SegmentReceipt:
     """Re-execute a segment, generate its witness and prove the subset."""
     dev = resolve_device(device)
     config = config or StarkConfig.standard_fast_config()
@@ -139,7 +164,7 @@ def prove_segment(seg: Segment, config: Optional[StarkConfig] = None,
     ts = segment_witness(seg, all_stark, block_path, dev, timer)
     pv = public_values_for_segment(seg)
     proof = prove_trace_set(ts, pv, config, all_stark, height_floors, dev,
-                            timer)
+                            timer, debug)
     return SegmentReceipt(proof=proof, pre_image_id=seg.pre_image_id,
                           image_id=seg.image_id, userdata=pv.userdata)
 

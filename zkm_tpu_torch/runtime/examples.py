@@ -1,5 +1,6 @@
 """Example guest programs, assembled with the guest SDK (copy of
-zkm_tpu/runtime/examples.py).
+zkm_tpu/runtime/examples.py, with `build_full_guest` from
+tests/test_full_system.py and the workload `build_hash_guest`).
 
 Reference analogs: prover/examples/{sha2-rust, keccak, sha2-composition}
 guests.  Each builder returns raw program bytes for `State` /
@@ -8,6 +9,8 @@ committed public values from the output stream.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from .asm import Asm
 from . import guest
@@ -71,6 +74,88 @@ def build_keccak_guest(nbytes: int = 32) -> bytes:
     guest.commit(a, H_PTR, 32)
     guest.halt(a, 0)
     return a.assemble()
+
+
+FULL_W_PTR, FULL_H_PTR = 0x1000, 0x1400
+FULL_K_IN, FULL_K_OUT = 0x2000, 0x2400
+
+
+def build_full_guest() -> bytes:
+    """A guest touching every table family: arithmetic (add), logic
+    (and/or/xor), memory (sw/lw), sha_extend + sha_compress, keccak, and
+    the poseidon sponge chain via bootstrap/exit page hashing.  The same
+    SDK calls as zkm_tpu's tests/test_full_system.py:build_full_guest, so
+    the same bytes."""
+    a = Asm()
+    a.li("t0", 5)
+    a.li("t1", 10)
+    a.add("t2", "t0", "t1")
+    a.and_("t3", "t0", "t1")
+    a.or_("t4", "t0", "t1")
+    a.xor("t5", "t2", "t4")
+    a.sw("t2", 0x3000, "zero")
+    a.lw("t6", 0x3000, "zero")
+    guest.sha_extend(a, FULL_W_PTR)
+    guest.sha_compress(a, FULL_W_PTR, FULL_H_PTR)
+    guest.keccak(a, FULL_K_IN, 32, FULL_K_OUT)
+    guest.halt(a, 0)
+    return a.assemble()
+
+
+HASH_IN_PTR = 0x10000     # the hint input; also the SHA-256 block w[0..16]
+HASH_H_PTR = 0x20000      # SHA-256 state (8 words)
+HASH_K_OUT = 0x20400      # keccak digest (8 words)
+
+
+def build_hash_guest(keccak_calls: int = 12, keccak_bytes: int = 4000,
+                     sha_blocks: int = 128) -> bytes:
+    """A hash-heavy workload, not a counterpart of a zkm_tpu example: it
+    fills the Keccak and SHA tables of one segment at real heights.
+
+    Reads a hint input of at least max(keccak_bytes, 64) bytes to
+    HASH_IN_PTR, runs `keccak_calls` keccak256s of its first keccak_bytes
+    (word-aligned; ceil((keccak_bytes + 1) / 136) permutations each),
+    then chains `sha_blocks` SHA-256 compressions of the block at
+    HASH_IN_PTR (its first 64 bytes as w[0..16], extended in place) from
+    the standard IV, and commits the SHA-256 state and the keccak digest.
+    Only SDK calls that zkm_tpu's guest SDK has too, in two counted
+    loops."""
+    assert keccak_bytes % 4 == 0 and keccak_calls > 0 and sha_blocks > 0
+    a = Asm()
+    guest.hint_len(a)
+    a.move("a1", "v0")
+    a.li("a0", HASH_IN_PTR)
+    guest.hint_read(a)
+
+    a.li("s0", keccak_calls)
+    a.label("keccak_loop")
+    guest.keccak(a, HASH_IN_PTR, keccak_bytes, HASH_K_OUT)
+    a.addiu("s0", "s0", -1)
+    a.bgtz("s0", "keccak_loop")
+    a.nop()
+
+    a.li("t1", HASH_H_PTR)
+    for i, iv in enumerate(SHA256_IV):
+        a.li("t0", iv)
+        a.sw("t0", 4 * i, "t1")
+    a.li("s1", sha_blocks)
+    a.label("sha_loop")
+    guest.sha_extend(a, HASH_IN_PTR)
+    guest.sha_compress(a, HASH_IN_PTR, HASH_H_PTR)
+    a.addiu("s1", "s1", -1)
+    a.bgtz("s1", "sha_loop")
+    a.nop()
+
+    guest.commit(a, HASH_H_PTR, 32)
+    guest.commit(a, HASH_K_OUT, 32)
+    guest.halt(a, 0)
+    return a.assemble()
+
+
+def hash_guest_input(nbytes: int = 4000, seed: int = 0) -> bytes:
+    """build_hash_guest's hint input: nbytes bytes drawn from `seed`."""
+    return np.random.default_rng(seed).integers(
+        0, 256, nbytes, dtype=np.uint8).tobytes()
 
 
 def build_fib_guest(n: int) -> bytes:

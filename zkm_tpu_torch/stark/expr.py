@@ -7,8 +7,9 @@ interned, so shared structure (bit recompositions, partial sums) evaluates
 once.  `schedule_ir` (host numpy, copied from the reference) layers the
 DAG; `evaluate_scheduled` then evaluates it level by level over a
 (slots, M) buffer with one `index_select` per operand and one field op per
-(level, op kind).  The constraint *order*, which fixes the verifier's
-alpha weights, is preserved exactly.
+(level, op kind).  `evaluate_ir` is the unscheduled evaluator, node by
+node, for the checkers (stark/stark_testing.py).  The constraint *order*,
+which fixes the verifier's alpha weights, is preserved exactly.
 """
 
 from __future__ import annotations
@@ -225,6 +226,65 @@ class StarkIR:
     """Compiled constraint system: node table + ordered constraints."""
     nodes: Tuple[Tuple, ...]              # (op, a, b)
     constraints: Tuple[Tuple[int, int], ...]   # (kind, node)
+
+
+def compile_stark(stark) -> StarkIR:
+    """Run the stark's own eval_generic once symbolically (no lookups, no
+    CTLs); public inputs are PARAM nodes 0..num_public_inputs-1."""
+    a = _BatchSymAlgebra()
+    lv = _SymRows(a, False)
+    nv = _SymRows(a, True)
+    consumer = SymConsumer()
+    if stark.num_public_inputs:
+        stark.eval_generic(a, lv, nv, consumer,
+                           [a.param(i) for i in range(stark.num_public_inputs)])
+    else:
+        stark.eval_generic(a, lv, nv, consumer)
+    return StarkIR(nodes=tuple(a.nodes), constraints=tuple(consumer.constraints))
+
+
+def evaluate_ir(ir: StarkIR, get_local, get_next, consumers_constraint,
+                params: Sequence[int] = ()):
+    """Evaluate the DAG node by node with Goldilocks ops.
+
+    get_local/get_next: col -> (M,) int64 tensor; params: python ints
+    matched by PARAM index; consumers_constraint: (kind, value) callback
+    issued in the original constraint order.  Values are tensors, or
+    python ints for nodes that depend on constants and params only."""
+    vals: List = [None] * len(ir.nodes)
+    live = _liveness(ir)
+
+    def binary(fn, host, x, y):
+        if isinstance(x, int) and isinstance(y, int):
+            return host(x, y) % P
+        if isinstance(x, int):
+            return fn(gl.full((), x, y.device), y)
+        return fn(x, y)
+
+    for i, (op, x, y) in enumerate(ir.nodes):
+        if not live[i]:
+            continue
+        if op == CONST:
+            v = x
+        elif op == LOCAL:
+            v = get_local(x)
+        elif op == NEXT:
+            v = get_next(x)
+        elif op == PARAM:
+            v = params[x] % P
+        elif op in (ADD, ADDC):
+            v = binary(gl.add, int.__add__, vals[x],
+                       y if op == ADDC else vals[y])
+        elif op == SUB:
+            v = binary(gl.sub, int.__sub__, vals[x], vals[y])
+        elif op in (MUL, MULC):
+            v = binary(gl.mul, int.__mul__, vals[x],
+                       y if op == MULC else vals[y])
+        else:
+            raise ValueError(op)
+        vals[i] = v
+    for kind, node in ir.constraints:
+        consumers_constraint(kind, vals[node])
 
 
 def _liveness(ir: StarkIR):

@@ -12,7 +12,10 @@ quotient cap -> zeta -> openings -> FRI.
     division is two constant inversions;
   * trace/aux quotient-domain values come from rate-1 coset LDEs of the
     committed coefficients; the next-row view on the 2n coset is a roll
-    by 2.
+    by 2;
+  * with debug=True every table's constraints are first checked on H
+    itself (`check_constraints`), which draws nothing from the
+    transcript: the proof is the same.
 """
 
 from __future__ import annotations
@@ -108,6 +111,31 @@ def quotient_values(stark, degree_bits: int, trace_coeffs: torch.Tensor,
     return [gl.mul(acc, inv_zh) for acc in accs]
 
 
+def check_constraints(stark, trace_values: torch.Tensor,
+                      aux_values: torch.Tensor, alphas, num_lookup: int,
+                      ctl_structure, challenges, publics=()) -> None:
+    """Evaluate the whole vanishing polynomial on H itself (zkMIPS
+    `check_constraints`, prover.rs:793-910): row selectors become
+    indicator vectors, and every accumulator must vanish on every row.
+    Asserts with the rows that fail."""
+    n = trace_values.shape[-1]
+    device = trace_values.device
+    full = torch.cat([trace_values, aux_values])
+    g = gl.primitive_root_of_unity(n.bit_length() - 1)
+    z_last = gl.sub(gl.powers(g, n, device), gl.host_pow(g, n - 1))
+    first = torch.zeros(n, dtype=torch.int64, device=device)
+    last = first.clone()
+    first[0] = last[-1] = 1
+    accs = eval_vanishing_scheduled(
+        stark, num_lookup, ctl_structure, full, torch.roll(full, -1, dims=-1),
+        challenges, alphas, (z_last, first, last), publics)
+    for i, acc in enumerate(accs):
+        bad = torch.nonzero(acc).flatten()
+        assert bad.numel() == 0, (
+            f"{type(stark).__name__}: constraints failed for alpha {i} at "
+            f"rows {bad[:10].tolist()}")
+
+
 def quotient_chunks(quotient_values: List[torch.Tensor], n: int) -> torch.Tensor:
     """Coset values (2n) -> coefficients -> two degree-n chunks each,
     challenge-major: (2 * len(quotient_values), n)."""
@@ -118,7 +146,8 @@ def quotient_chunks(quotient_values: List[torch.Tensor], n: int) -> torch.Tensor
 def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
                        trace_commitment: PolynomialBatch, ctl_data,
                        ctl_challenges, challenger: Challenger,
-                       publics=(), timer=None) -> StarkProofWithMetadata:
+                       publics=(), timer=None,
+                       debug: bool = False) -> StarkProofWithMetadata:
     n = trace_values.shape[-1]
     degree_bits = n.bit_length() - 1
     rate_bits = config.fri_config.rate_bits
@@ -151,6 +180,12 @@ def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
                   for i, c in enumerate(ctl_challenges.challenges)}
     ctl_structure = ctl_structure_of(ctl_data, chal_index)
     challenges = [(c.beta, c.gamma) for c in ctl_challenges.challenges]
+
+    if debug:
+        with step(timer, "check_constraints"):
+            check_constraints(stark, trace_values, aux_values, alphas,
+                              num_lookup_columns, ctl_structure, challenges,
+                              publics)
 
     with step(timer, "quotient"):
         qvals = quotient_values(
@@ -224,11 +259,12 @@ def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
 def prove_with_traces(starks: Sequence, config: StarkConfig,
                       traces: Sequence[torch.Tensor], ctls,
                       public_values: PublicValues, device=None,
-                      timer=None) -> AllProof:
+                      timer=None, debug: bool = False) -> AllProof:
     """traces[t]: (C_t, N_t) int64 trace values of table t.
 
     Runs on the card unless device='cpu' (raises without a card).  `timer`
-    (a utils.timing.StepTimer) collects per-step seconds."""
+    (a utils.timing.StepTimer) collects per-step seconds; `debug` checks
+    each table's constraints on H before its quotient."""
     dev = resolve_device(device)
     traces = [t.to(dev) for t in traces]
     rate_bits = config.fri_config.rate_bits
@@ -255,7 +291,8 @@ def prove_with_traces(starks: Sequence, config: StarkConfig,
         proofs.append(prove_single_table(
             stark, config, traces[i], commitment, ctl_data_per_table[i],
             ctl_challenges, challenger,
-            publics=public_inputs_of(stark, public_values), timer=timer))
+            publics=public_inputs_of(stark, public_values), timer=timer,
+            debug=debug))
         # this table's commitment, trace and CTL columns are dead now:
         # free them before the next table commits its oracles
         commitment.release()

@@ -2,14 +2,13 @@
 
 Copy of zkm_tpu/witness/generation.py (zkMIPS prover/src/witness/
 {transition.rs,operation.rs,util.rs,memory.rs,state.rs} and
-generation/mod.rs) for the SPONGE_SUBSET tables.  Re-executes a segment
+generation/mod.rs) for the 12 tables.  Re-executes a segment
 instruction by instruction, filling one CPU row per cycle (columns per
 tables/cpu/columns.py) and pushing memory / arithmetic / logic / sponge op
 logs that become the other tables; returns a `witness.trace_set.TraceSet`.
-The KECCAK, SHA_EXTEND, SHA_COMPRESS and VERIFY syscalls raise
-NotImplementedError: their tables (and the receipts of VERIFY) are not
-ported.  Page sponges run on the generation state's device
-(witness/sponge.py).
+The VERIFY syscall raises NotImplementedError: it needs assumption
+receipts (zkm_tpu/receipts.py), which are not ported.  Page sponges run on
+the generation state's device (witness/sponge.py).
 
 Semantics follow the *emulator* (emulator/state.py) exactly — the
 witness must reproduce the segment's post-state — mapped onto the
@@ -34,14 +33,17 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
-from ..emulator.state import Segment, State, sign_extension
+from ..emulator.state import SHA_COMPRESS_K, Segment, State, sign_extension
 from ..field import goldilocks as gl
+from ..hash.keccak import keccak256
 from ..tables import arithmetic as arith
 from ..tables import logic as logic_mod
 from ..tables.cpu import columns as cc
 from ..tables.memory import (MemoryOp, SEG_CODE, SEG_REGISTER_FILE,
                              SEG_SHIFT_TABLE)
-from .sponge import bootstrap_hash_checks, exit_kernel_checks
+from .sponge import (bootstrap_hash_checks, exit_kernel_checks,
+                     keccak_sponge_log, sha_compress_sponge_log,
+                     sha_extend_sponge_log)
 from .trace_set import TraceSet
 
 M32 = 0xFFFFFFFF
@@ -74,10 +76,15 @@ def _finv(x: int) -> int:
 class GenerationState:
     """Prover-side machine state (generation/state.rs:208-300)."""
 
-    def __init__(self, seg: Segment, device=None, sponge: bool = False):
+    def __init__(self, seg: Segment, device=None, sponge: bool = False,
+                 keccak: bool = False, sha: bool = False):
         self.seg = seg
         self.device = device            # where the page sponges run
+        # which sponge tables are proved: their ops are logged only then,
+        # so that a smaller subset's memory CTL stays balanced
         self.sponge_enabled = sponge
+        self.keccak_enabled = keccak
+        self.sha_enabled = sha
         # registers from the segment's packed register page (state.py)
         st, _ = State.load_seg(seg, device)
         self.regs = list(st.registers) + [
@@ -705,9 +712,6 @@ FD_STDIN, FD_STDOUT, FD_STDERR, FD_PUBLIC_VALUES, FD_HINT = range(5)
 MIPSEBADF = 9
 
 _UNPORTED_SYSCALLS = {
-    SYSKECCAK: "the Keccak and KeccakSponge tables",
-    SYSSHAEXTEND: "the ShaExtend and ShaExtendSponge tables",
-    SYSSHACOMPRESS: "the ShaCompress and ShaCompressSponge tables",
     SYSVERIFY: "receipts.py (assumption receipts)",
 }
 
@@ -830,6 +834,13 @@ def _gen_syscall(s: GenerationState, row, block_path: str = ""):
         assert a0 % 4 == 0, "hint read address not aligned"
         v0 = a2
         post = lambda: _load_input(s, a0, a1)
+    elif sysnum == SYSKECCAK:
+        post = lambda: _gen_keccak(s, a0, a1, a2)
+    elif sysnum == SYSSHACOMPRESS:
+        post = lambda: _gen_sha_compress(s, a0, a1)
+    elif sysnum == SYSSHAEXTEND:
+        assert a1 == 0, "sha_extend arg2 must be 0"
+        post = lambda: _gen_sha_extend(s, a0)
     elif sysnum in _UNPORTED_SYSCALLS:
         raise NotImplementedError(
             f"syscall {sysnum:#x} at pc {s.pc:#x} needs "
@@ -1058,17 +1069,156 @@ def perform_instruction(s: GenerationState, block_path: str = ""):
     raise ValueError(f"undecodable opcode {opcode:#08b} at pc {s.pc:#x}")
 
 
+def _gen_keccak(s: GenerationState, addr: int, length: int, ptr: int):
+    """KECCAK syscall rows (operation.rs generate_keccak:1101)."""
+    row = s.new_row()
+    j = 0
+    data = bytearray()
+    data_addr = []
+    map_addr = addr
+    for i in range(0, length, 4):
+        if j == 8:
+            s.push_row(row)
+            row = s.new_row()
+            j = 0
+        word = s.mem_read_gp(j, map_addr, row)
+        ln = min(4, length - i)
+        data += word.to_bytes(4, "big")[:ln]
+        data_addr.append((0, SEG_CODE, map_addr))
+        map_addr += 4
+        j += 1
+    s.push_row(row)
+
+    row = s.new_row()
+    row[cc.IS_KECCAK_SPONGE] = 1
+    digest = keccak256(bytes(data))
+    row[cc.MEM_CHANNELS[0].value] = 0
+    row[cc.MEM_CHANNELS[1].value] = SEG_CODE
+    final_idx = (length // 136) * 34
+    row[cc.MEM_CHANNELS[2].value] = \
+        data_addr[final_idx][2] if final_idx < len(data_addr) else 0
+    row[cc.MEM_CHANNELS[3].value] = length
+    digest_words = [int.from_bytes(digest[i * 4:i * 4 + 4], "big")
+                    for i in range(8)]
+    for i, w in enumerate(reversed(digest_words)):
+        row[cc.KHASH_VALUE.start + i] = w
+    keccak_sponge_log(s, data_addr, bytes(data))
+    s.push_row(row)
+
+    row = s.new_row()
+    for i in range(8):
+        s.mem_write_gp(i, ptr + (i << 2), row, digest_words[i])
+    s.push_row(row)
+
+
+def _gen_sha_extend(s: GenerationState, w_ptr: int):
+    """SHA_EXTEND syscall rows (operation.rs generate_sha_extend:1184)."""
+    for i in range(16, 64):
+        row = s.new_row()
+        addrs = []
+        # the sigma XORs are proven in-table by the bit-sliced ShaExtend
+        # stark (no logic-table ops, unlike zkMIPS — see
+        # tables/sha_extend.py)
+        w15 = s.mem_read_gp(0, w_ptr + (i - 15) * 4, row)
+        addrs.append(w_ptr + (i - 15) * 4)
+        s0 = _rotr(w15, 7) ^ _rotr(w15, 18) ^ (w15 >> 3)
+        w2 = s.mem_read_gp(1, w_ptr + (i - 2) * 4, row)
+        addrs.append(w_ptr + (i - 2) * 4)
+        s1 = _rotr(w2, 17) ^ _rotr(w2, 19) ^ (w2 >> 10)
+        w16 = s.mem_read_gp(2, w_ptr + (i - 16) * 4, row)
+        addrs.append(w_ptr + (i - 16) * 4)
+        w7 = s.mem_read_gp(3, w_ptr + (i - 7) * 4, row)
+        addrs.append(w_ptr + (i - 7) * 4)
+        w_i = (s1 + w16 + s0 + w7) & M32
+        s.mem_write_gp(4, w_ptr + i * 4, row, w_i)
+        s.push_row(row)
+
+        row = s.new_row()
+        row[cc.IS_SHA_EXTEND_SPONGE] = 1
+        row[cc.MEM_CHANNELS[0].value] = 0
+        row[cc.MEM_CHANNELS[1].value] = SEG_CODE
+        row[cc.MEM_CHANNELS[2].value] = w_ptr + i * 4
+        row[cc.ELEMENT_VALUE] = w_i
+        sha_extend_sponge_log(s, addrs, [w15, w2, w16, w7],
+                              w_ptr + i * 4, i - 16)
+        s.push_row(row)
+
+
+def _gen_sha_compress(s: GenerationState, w_ptr: int, h_ptr: int):
+    """SHA_COMPRESS syscall rows (operation.rs generate_sha_compress:1300)."""
+    row = s.new_row()
+    hx = []
+    for i in range(8):
+        hx.append(s.mem_read_gp(i, h_ptr + i * 4, row))
+    s.push_row(row)
+
+    a, b, c, d, e, f, g, h = hx
+    w_vals = []
+    state_vals = []
+    row = s.new_row()
+    j = 0
+    for i in range(64):
+        state_vals.append([a, b, c, d, e, f, g, h])
+        s_1_inter = _rotr(e, 6) ^ _rotr(e, 11)
+        s1 = s_1_inter ^ _rotr(e, 25)
+        e_not = ~e & M32
+        e_and_f = e & f
+        not_e_and_g = e_not & g
+        ch = e_and_f ^ not_e_and_g
+        if j == 8:
+            s.push_row(row)
+            row = s.new_row()
+            j = 0
+        w_i = s.mem_read_gp(j, w_ptr + i * 4, row)
+        j += 1
+        w_vals.append(w_i)
+        temp1 = (h + s1 + ch + SHA_COMPRESS_K[i] + w_i) & M32
+        s0_inter = _rotr(a, 2) ^ _rotr(a, 13)
+        s0 = s0_inter ^ _rotr(a, 22)
+        a_and_b = a & b
+        a_and_c = a & c
+        b_and_c = b & c
+        maj_inter = a_and_b ^ a_and_c
+        maj = maj_inter ^ b_and_c
+        temp2 = (s0 + maj) & M32
+        # sigma/ch/maj are proven in-table by the bit-sliced ShaCompress
+        # stark (zkMIPS pushes 12 logic ops per round)
+        h, g, f, e, d, c, b, a = \
+            g, f, e, (d + temp1) & M32, c, b, a, (temp1 + temp2) & M32
+    state_vals.append([a, b, c, d, e, f, g, h])
+    s.push_row(row)
+
+    row = s.new_row()
+    row[cc.IS_SHA_COMPRESS_SPONGE] = 1
+    row[cc.MEM_CHANNELS[0].value] = 0
+    row[cc.MEM_CHANNELS[1].value] = SEG_CODE
+    row[cc.MEM_CHANNELS[2].value] = h_ptr
+    out = [(hx[i] + v) & M32
+           for i, v in enumerate([a, b, c, d, e, f, g, h])]
+    for i, v in enumerate(out):
+        row[cc.SHASH_VALUE.start + i] = v
+    sha_compress_sponge_log(s, hx, h_ptr, w_vals, w_ptr, state_vals)
+    s.push_row(row)
+
+    row = s.new_row()
+    for i in range(8):
+        s.mem_write_gp(i, h_ptr + i * 4, row, out[i])
+    s.push_row(row)
+
+
 # ---------------------------------------------------------------------------
 # Top-level driver (generation/mod.rs simulate_cpu + padding)
 # ---------------------------------------------------------------------------
 
 def generate_segment_traces(seg: Segment, block_path: str = "",
-                            sponge: bool = False, min_rows: int = 64,
+                            sponge: bool = False, keccak: bool = False,
+                            sha: bool = False, min_rows: int = 64,
                             device=None) -> TraceSet:
     """Bootstrap + simulate + pad; returns the TraceSet of the tables.
     With `sponge` the page and image-id sponges are generated, on
-    `device` (None: the card)."""
-    s = GenerationState(seg, device, sponge)
+    `device` (None: the card); with `keccak` / `sha` the ops of the Keccak
+    and SHA tables are logged."""
+    s = GenerationState(seg, device, sponge, keccak, sha)
     generate_bootstrap(s, sponge=sponge)
 
     step = 0

@@ -2,8 +2,8 @@
 
 Copy of zkm_tpu/witness/sponge.py (zkMIPS prover/src/witness/util.rs
 sponge loggers, cpu/bootstrap_kernel.rs and exit_kernel.rs: the page-hash
-and image-id checks binding the memory image to the proof), without the
-Keccak and SHA loggers, whose tables the port lacks.
+and image-id checks binding the memory image to the proof, and the
+Keccak and SHA sponge loggers).
 
 Every sponge chain here (a level's pages batched, or one image-id sponge)
 runs through `hash.poseidon.sponge_chains_u64` on the generation state's
@@ -22,9 +22,15 @@ from typing import List, Tuple
 import numpy as np
 
 from ..hash import poseidon as ps
+from ..hash.keccak import keccak_f
+from ..tables import keccak_sponge as ks
+from ..tables import logic as logic_mod
+from ..tables import sha_compress_sponge as shacs
 from ..tables.cpu import columns as cc
-from ..tables.memory import SEG_CODE
+from ..tables.memory import SEG_CODE, MemoryOp
 from ..tables.poseidon_sponge import PoseidonSpongeOp
+from ..tables.sha_compress import ShaCompressOp
+from ..tables.sha_extend import ShaExtendOp, extend_step
 
 PAGE_SIZE = 4096
 WORDS_PER_PAGE = PAGE_SIZE // 4
@@ -254,3 +260,103 @@ def exit_kernel_checks(s, seg):
             _check_page_hash(s, seg, page_addr << 12, update=True,
                              precomputed=pre[page_addr])
     _check_image_id(s, seg, post=True)
+
+
+# -- syscall sponge loggers --------------------------------------------------
+
+def keccak_sponge_log(s, base_addresses: List[Tuple[int, int, int]],
+                      input_bytes: bytes):
+    """Log one keccak sponge op: word-level memory reads, per-block XOR
+    logic ops + keccak-f permutation inputs, and the sponge-table op
+    (witness/util.rs keccak_sponge_log:471-557).  Gated on the Keccak
+    tables being registered (s.keccak_enabled) so the memory-op stream
+    stays CTL-balanced for smaller table subsets."""
+    if not s.keccak_enabled:
+        return
+    assert len(input_bytes) % 4 == 0, "keccak inputs must be word-aligned"
+    ts = s.clock() * cc.NUM_CHANNELS
+    nwords = len(input_bytes) // 4
+    assert len(base_addresses) == nwords
+    for i, (ctx, seg, virt) in enumerate(base_addresses):
+        v = int.from_bytes(input_bytes[4 * i:4 * i + 4], "big")
+        got = s.mget(ctx, seg, virt)
+        assert got == v, (
+            f"keccak read mismatch at {virt:#x}: mem {got:#x} != {v:#x}")
+        s._push_mem(True, True, ctx, seg, virt, v)
+
+    # absorb loop: pad10*1, XOR via logic ops, permute via keccak table
+    nb = len(input_bytes) // ks.RATE_BYTES + 1
+    flen = len(input_bytes) - (nb - 1) * ks.RATE_BYTES
+    state = [0] * ks.WIDTH_U32S
+    for b in range(nb):
+        if b == nb - 1:
+            bb = np.zeros(ks.RATE_BYTES, dtype=np.uint64)
+            bb[:flen] = list(input_bytes[b * ks.RATE_BYTES:])
+            bb += ks.pad_pattern(flen)
+            block = [int(x) for x in bb]
+        else:
+            block = list(input_bytes[b * ks.RATE_BYTES:
+                                     (b + 1) * ks.RATE_BYTES])
+        block_u32s = [sum(block[4 * w + j] << (8 * j) for j in range(4))
+                      for w in range(ks.RATE_U32S)]
+        for w in range(ks.RATE_U32S):
+            s.t.logic_ops.append(
+                (logic_mod.OP_XOR, state[w], block_u32s[w]))
+        xored = [state[w] ^ block_u32s[w] for w in range(ks.RATE_U32S)]
+        u32s = xored + state[ks.RATE_U32S:]
+        lanes = [u32s[2 * j] | (u32s[2 * j + 1] << 32) for j in range(25)]
+        s.t.keccak_inputs.append((lanes, ts))
+        out = keccak_f(lanes)
+        state = []
+        for v in out:
+            state += [v & 0xFFFFFFFF, v >> 32]
+
+    s.t.keccak_sponge_ops.append(ks.KeccakSpongeOp(
+        base_address=list(base_addresses), timestamp=ts,
+        input=bytes(input_bytes)))
+
+
+def sha_extend_sponge_log(s, input_addrs, input_vals, out_addr, round_i):
+    """Log one extend step: 4 input word reads + the w[i] read-back at the
+    sponge timestamp, and the ShaExtend/ShaExtendSponge op.  Gated on the
+    SHA tables being registered (s.sha_enabled)."""
+    if not s.sha_enabled:
+        return
+    ts = s.clock() * cc.NUM_CHANNELS
+    for addr, val in zip(input_addrs, input_vals):
+        assert s.mget(0, SEG_CODE, addr) == val
+        s._push_mem(True, True, 0, SEG_CODE, addr, val)
+    w_i = extend_step(*input_vals)
+    assert s.mget(0, SEG_CODE, out_addr) == w_i, "extend write mismatch"
+    s._push_mem(True, True, 0, SEG_CODE, out_addr, w_i)
+
+    s.t.sha_extend_ops.append(ShaExtendOp(
+        context=0, segment=SEG_CODE, virt_out=out_addr, timestamp=ts,
+        inputs=list(input_vals), output=w_i))
+
+
+def sha_compress_sponge_log(s, hx_vals, h_ptr, w_vals, w_ptr, state_vals):
+    """Log one compress block: 8 hx reads + 64 w reads at the sponge
+    timestamp (the w reads balance the ShaCompress table's per-round
+    memory CTL), 8 digest read-backs at ts+19 (after the CPU write row at
+    ts+10), and the ShaCompress/ShaCompressSponge op."""
+    if not s.sha_enabled:
+        return
+    ts = s.clock() * cc.NUM_CHANNELS
+    for i, val in enumerate(hx_vals):
+        assert s.mget(0, SEG_CODE, h_ptr + 4 * i) == val
+        s._push_mem(True, True, 0, SEG_CODE, h_ptr + 4 * i, val)
+    for i, val in enumerate(w_vals):
+        assert s.mget(0, SEG_CODE, w_ptr + 4 * i) == val
+        s._push_mem(True, True, 0, SEG_CODE, w_ptr + 4 * i, val)
+    final = state_vals[-1]
+    for i in range(8):
+        out = (hx_vals[i] + final[i]) & shacs.M32
+        s.t.memory_ops.append(MemoryOp(
+            True, ts + shacs.OUT_TS_OFFSET, True, 0, SEG_CODE, h_ptr + 4 * i,
+            out))
+
+    s.t.sha_compress_ops.append(ShaCompressOp(
+        context=0, segment=SEG_CODE, h_virt=h_ptr, w_virt_base=w_ptr,
+        timestamp=ts, hx=list(hx_vals), w=list(w_vals),
+        final=list(final)))
