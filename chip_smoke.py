@@ -47,9 +47,28 @@ Phases (any failure exits nonzero):
      each table's quotient buffer; the segment and its witness must match
      zkm_tpu's record (zkm_tpu_torch/data/hash_segment_reference.json);
      with --profile also a warm host.prove_segment of it under
-     torch.profiler.
-The line before the last is {"kernels": [...]}, with the launches of the
-first phase-7b run; the last line is {"ok": true, "device": {...}}.
+     torch.profiler;
+  8. receipts, composition and recursion: (a) tests/test_recursion_
+     aggregate.py's statement (two Logic proofs, roots 0->1->2, under its
+     _rconfig) proved, shrunk through one build_shrink_circuit and
+     aggregated by AggregationTree on the card: the inner, shrink and root
+     proofs' flattened sha256, the shrink DAG's counts and both program
+     caps must equal zkm_tpu's record (zkm_tpu_torch/data/
+     recursion_toy_reference.json); a tampered claim is rejected; and the
+     composition guest's composite receipt (SYS_VERIFY) verifies and is
+     rejected with its assumption unresolved; (b) the slice's main path
+     (scripts/recursion_stages.py's workload): fib(40) split at seg_size
+     1800 into 2 segments, both proved under Cpu/Logic/Memory and
+     test_config, the shrink circuit recorded from segment 0, both proofs
+     shrunk, and the aggregation root proved and verified with the chained
+     claim (a tampered claim rejected), with per-step times, K1/K2
+     launches and peak device memory per step, the heights of every
+     table and the DAG counts; segments, inner digests, the shrink DAG's
+     counts, program cap and heights must equal zkm_tpu's record
+     (zkm_tpu_torch/data/recursion_fib_reference.json); with --profile
+     also the root's prove under torch.profiler.
+The line before the last is {"kernels": [...]}, with the launches of
+phase 8b; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -94,6 +113,7 @@ TOY_PROGRAM = (0x24080005, 0x2409000A, 0x01095020, 0x3508BEEF, 0x01096824,
                0x0000000C)
 MEMALLOC_ARGS, MEMALLOC_SEG_SIZE = (64, 64), 1 << 16
 FULL_SEG_SIZE, HASH_SEG_SIZE = 1 << 20, 1 << 16
+FIB_N, FIB_SEG_SIZE = 40, 1800   # scripts/recursion_stages.py's workload
 
 
 def log(msg: str) -> None:
@@ -875,12 +895,306 @@ def phase_hash_segment(dev, profile: bool) -> dict:
     return launches
 
 
+# -- phase 8: receipts, composition and recursion --------------------------
+
+def _recursion_config():
+    """tests/test_recursion_aggregate.py:_rconfig (2 queries, cap 1, arity
+    2), phase 8a's inner and shrink config."""
+    from zkm_tpu_torch.fri.config import FriConfig
+    from zkm_tpu_torch.stark.config import StarkConfig
+    return StarkConfig(
+        security_bits=1, num_challenges=2,
+        fri_config=FriConfig(rate_bits=2, cap_height=1, proof_of_work_bits=1,
+                             num_query_rounds=2, arity_bits=2,
+                             final_poly_bits=3))
+
+
+def _roots(a: int, b: int):
+    from zkm_tpu_torch.stark.proof import MemRoots, PublicValues
+    return PublicValues(MemRoots.from_image_id(bytes([a] * 32)),
+                        MemRoots.from_image_id(bytes([b] * 32)), bytes(32))
+
+
+def _expect(what: str, got, want) -> None:
+    log(f"[recursion] {what}: {got} == zkm_tpu's: {got == want}")
+    if got != want:
+        raise AssertionError(f"{what} differs from zkm_tpu's record: {got} "
+                             f"!= {want}")
+
+
+def _dag_counts(circuit) -> dict:
+    dag = circuit.vdag.dag
+    return {"n": dag.n, "prog_len": len(dag.prog),
+            "num_poseidons": dag.num_poseidons}
+
+
+def _reject_tampered_claim(circuit, proof) -> str:
+    """verify_shrink on a copy whose claimed roots_before changed; returns
+    its error."""
+    import copy
+    from zkm_tpu_torch.recursion.shrink import verify_shrink
+    bad = copy.deepcopy(proof)
+    root = bad.public_values.roots_before.root
+    root[0] = (int(root[0]) + 1) % P
+    try:
+        verify_shrink(circuit, bad)
+    except ValueError as e:
+        return str(e)
+    raise AssertionError("verify_shrink accepted a tampered claim")
+
+
+def check_recursion_toy(dev) -> None:
+    """Phase 8a: tests/test_recursion_aggregate.py's statement on the card,
+    bit for bit against zkm_tpu's record; then a composite receipt of the
+    composition guest."""
+    from zkm_tpu_torch.convert import traces_from_rows
+    from zkm_tpu_torch.recursion.aggregate import AggregationTree
+    from zkm_tpu_torch.recursion.shrink import (build_shrink_circuit,
+                                                verify_shrink)
+    from zkm_tpu_torch.stark.cross_table_lookup import (CrossTableLookup,
+                                                        TableWithColumns)
+    from zkm_tpu_torch.stark.proof import flat_sha256, flatten_proof
+    from zkm_tpu_torch.stark.prover import prove_with_traces
+    from zkm_tpu_torch.tables import logic
+    from zkm_tpu_torch.witness.trace_set import DATA
+
+    with open(os.path.join(DATA, "recursion_toy_reference.json")) as f:
+        record = json.load(f)
+    t0 = time.perf_counter()
+    config = _recursion_config()
+    cols, filt = tuple(logic.ctl_data()), logic.ctl_filter()
+    ctls = [CrossTableLookup((TableWithColumns(0, cols, filt),),
+                             TableWithColumns(0, cols, filt))]
+    starks = [logic.LogicStark()]
+    rows = logic.generate_rows([tuple(o) for o in record["ops"]],
+                               min_rows=record["min_rows"])
+    inner = [prove_with_traces(starks, config, traces_from_rows([rows], dev),
+                               ctls, _roots(tag, tag + 1), device=dev)
+             for tag in (0, 1)]
+    digest = lambda p: flat_sha256(flatten_proof(p))  # noqa: E731
+    _expect("8a inner proofs' sha256", [digest(p) for p in inner],
+            record["inner_sha256_flat"])
+    circuit = build_shrink_circuit(starks, ctls, config, inner[0],
+                                   device=dev)
+    want = record["shrink_circuit"]
+    _expect("8a shrink DAG (wires, ops, Poseidons)", _dag_counts(circuit),
+            {k: want[k] for k in ("n", "prog_len", "num_poseidons")})
+    _expect("8a shrink program cap", circuit.program_cap.tolist(),
+            want["program_cap"])
+    tree = AggregationTree(circuit, disk_cache=False, device=dev)
+    leaves = [tree.shrink(p) for p in inner]
+    _expect("8a shrink proofs' sha256", [digest(lf.proof) for lf in leaves],
+            record["shrink_sha256_flat"])
+    log(f"[recursion] 8a shrink proofs verified; a tampered claim is "
+        f"rejected ({_reject_tampered_claim(circuit, leaves[0].proof)})")
+    node = tree.node_circuit(leaves[0], leaves[1])
+    _expect("8a node program cap", node.program_cap.tolist(),
+            record["node_circuit"]["program_cap"])
+    root = tree.aggregate(leaves)
+    verify_shrink(node, root.proof)
+    _expect("8a root sha256", digest(root.proof), record["root_sha256_flat"])
+    log(f"[recursion] 8a in {time.perf_counter() - t0:.1f} s")
+    check_composition(dev)
+
+
+def check_composition(dev) -> None:
+    """The composition guest (runtime.examples.build_composition_guest)
+    under Cpu/Logic/Memory and test_config: SYS_VERIFY consumes a claim,
+    host.prove_segments_with_assumptions returns a composite receipt that
+    receipts.verify_receipt accepts, and rejects with the assumption
+    unresolved."""
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch import receipts as rc
+    from zkm_tpu_torch.runtime.examples import build_composition_guest
+    from zkm_tpu_torch.stark.all_stark import Table, make_all_stark
+    from zkm_tpu_torch.stark.config import StarkConfig
+
+    t0 = time.perf_counter()
+    config = StarkConfig.test_config()
+    all_stark = make_all_stark((Table.Cpu, Table.Logic, Table.Memory))
+    claim = rc.ReceiptClaim(elf_id=b"\x07" * 32, commit=b"\x08" * 32)
+    proven = rc.AssumptionReceipt(proven=rc.Receipt.segments(
+        rc.InnerReceipt(segments=[], claim=claim)))
+    _, segs = _split(build_composition_guest(), (rc.claim_digest(claim),),
+                     FULL_SEG_SIZE, dev)
+    receipt = host.prove_segments_with_assumptions(
+        segs, [proven], config, all_stark, device=dev)
+    if not isinstance(receipt.inner, rc.CompositeReceipt):
+        raise AssertionError("SYS_VERIFY's assumption was not used")
+    rc.verify_receipt(receipt, config, all_stark)
+    assumption, _ = receipt.assumptions()[0]
+    receipt.inner.assumptions_used[0] = (
+        assumption, rc.AssumptionReceipt(unresolved=assumption))
+    try:
+        rc.verify_receipt(receipt, config, all_stark)
+    except ValueError as e:
+        log(f"[recursion] 8a composite receipt of the composition guest "
+            f"({len(segs)} segment(s)) verified in "
+            f"{time.perf_counter() - t0:.1f} s; with its assumption "
+            f"unresolved it is rejected ({e})")
+        return
+    raise AssertionError("verify_receipt accepted an unresolved assumption")
+
+
+def _heights(proof) -> list:
+    return [p.degree_bits for p in proof.stark_proofs]
+
+
+def phase_recursion(dev, profile: bool) -> dict:
+    """Phase 8b, this slice's main path: two real fib segments proved,
+    shrunk and aggregated into one root, each step timed with its launches
+    and peak memory, held against zkm_tpu's record.  Returns the path's
+    launches."""
+    import torch
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.recursion.aggregate import AggregationTree
+    from zkm_tpu_torch.recursion.shrink import (build_shrink_circuit,
+                                                verify_shrink)
+    from zkm_tpu_torch.runtime.examples import build_fib_guest
+    from zkm_tpu_torch.stark.all_stark import Table, make_all_stark
+    from zkm_tpu_torch.stark.config import StarkConfig
+    from zkm_tpu_torch.stark.proof import flat_sha256, flatten_proof
+    from zkm_tpu_torch.utils.timing import step
+    from zkm_tpu_torch.witness.trace_set import DATA
+
+    with open(os.path.join(DATA, "recursion_fib_reference.json")) as f:
+        record = json.load(f)
+    config = StarkConfig.test_config()
+    all_stark = make_all_stark(tuple(Table[n] for n in record["subset"]))
+    digest = lambda p: flat_sha256(flatten_proof(p))  # noqa: E731
+    timers = {name: LaunchTimer(dev, step_peaks=True)
+              for name in ("inner", "shrink_circuit", "shrink_0", "shrink_1",
+                           "aggregate")}
+    reset_launches()
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+
+    inner_t = timers["inner"]
+    with step(inner_t, "emulate"):
+        total, segs = _split(build_fib_guest(FIB_N), (), FIB_SEG_SIZE, dev)
+    receipts = [host.prove_segment(s, config, all_stark, device=dev,
+                                   timer=inner_t) for s in segs]
+    host.check_receipt_chain(receipts)
+    _expect("8b fib segments (total steps, [steps, pre/post image id])",
+            (total, [{"step": s.step, "pre_image_id": s.pre_image_id.hex(),
+                      "image_id": s.image_id.hex()} for s in segs]),
+            (record["total_steps"], record["segments"]))
+    proofs = [r.proof for r in receipts]
+    _expect("8b inner heights", [_heights(p) for p in proofs],
+            record["inner_heights_log2"])
+    _expect("8b inner proofs' sha256", [digest(p) for p in proofs],
+            record["inner_sha256_flat"])
+    if len({tuple(_heights(p)) for p in proofs}) != 1:
+        raise AssertionError("the inner proofs' heights differ: one shrink "
+                             "circuit cannot verify both")
+
+    circuit = build_shrink_circuit(all_stark.starks, all_stark.ctls, config,
+                                   proofs[0], device=dev,
+                                   timer=timers["shrink_circuit"])
+    want = record["shrink_circuit"]
+    _expect("8b shrink DAG (wires, ops, Poseidons)", _dag_counts(circuit),
+            {k: want[k] for k in ("n", "prog_len", "num_poseidons")})
+    _expect("8b shrink program cap (verifying key)",
+            circuit.program_cap.tolist(), want["program_cap"])
+
+    tree = AggregationTree(circuit, disk_cache=False, device=dev)
+    leaves = [tree.shrink(p, timers[f"shrink_{i}"])
+              for i, p in enumerate(proofs)]
+    _expect("8b shrink heights (VM, WireMem, PoseidonCall, Poseidon, "
+            "Program)", [_heights(lf.proof) for lf in leaves],
+            [[t["log2_rows"] for t in tr] for tr in record["shrink_traces"]])
+    if record.get("shrink_sha256_flat"):
+        _expect("8b shrink 0's sha256", digest(leaves[0].proof),
+                record["shrink_sha256_flat"])
+    else:
+        log(f"[recursion] 8b shrink 0's sha256 {digest(leaves[0].proof)}: "
+            f"no zkm_tpu value ({record['shrink_note']})")
+
+    agg_t = timers["aggregate"]
+    root = tree.aggregate_pair(leaves[0], leaves[1], agg_t)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_start
+    launches = read_launches()
+    node = tree.circuit_for(root)
+    verify_shrink(node, root.proof)
+    pv, pv0, pv1 = (root.proof.public_values, proofs[0].public_values,
+                    proofs[1].public_values)
+    chained = (pv.roots_before == pv0.roots_before
+               and pv.roots_after == pv1.roots_after
+               and pv.userdata == pv0.userdata == pv1.userdata)
+    log(f"[recursion] 8b root claims (segment 0's roots_before, segment 1's "
+        f"roots_after, userdata): {chained}; verified by verify_shrink; a "
+        f"tampered claim is rejected "
+        f"({_reject_tampered_claim(node, root.proof)})")
+    if not chained:
+        raise AssertionError("the root's claim is not the chained claim")
+
+    log(f"[recursion] 8b circuits: shrink DAG {_dag_counts(circuit)}, "
+        f"aggregation DAG {_dag_counts(node)}")
+    log(f"[recursion] 8b heights: shrink 0 2^{_heights(leaves[0].proof)}, "
+        f"shrink 1 2^{_heights(leaves[1].proof)}, root "
+        f"2^{_heights(root.proof)} (VM, WireMem, PoseidonCall, Poseidon, "
+        f"Program)")
+    for name, t in timers.items():
+        log(f"[recursion] 8b {name}: {sum(t.seconds.values()):.3f} s "
+            f"({t.report()})")
+    log(f"[recursion] 8b fib({FIB_N}) 2 segments -> 2 shrinks -> root: "
+        f"{wall:.3f} s; launches {launches}; peak device memory "
+        f"{max(max(t.peak_gib.values()) for t in timers.values()):.2f} GiB")
+    if not all(launches.values()) or not all(
+            timers[n].launches.get("trace_commit", [0, 0])[0]
+            for n in ("shrink_0", "shrink_1", "aggregate")):
+        raise AssertionError(f"a kernel was not launched where it must be: "
+                             f"{launches}, {timers['aggregate'].launches}")
+    if profile:
+        profile_root(node, leaves, dev)
+    return launches
+
+
+def profile_root(node, leaves, dev) -> None:
+    """Device time per kernel name of the root's prove_aggregation under
+    torch.profiler, with its device-busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from zkm_tpu_torch.recursion.shrink import prove_aggregation
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prove_aggregation(node, [lf.proof for lf in leaves], device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows_out = [(e.self_device_time_total, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total]
+    rows_out.sort(reverse=True)
+    device_us = sum(r[0] for r in rows_out)
+    log(f"[profile] root prove_aggregation under the profiler: wall "
+        f"{wall * 1e3:.1f} ms, device time {device_us / 1e3:.1f} ms (busy "
+        f"share {device_us / 1e4 / wall:.1f}%), "
+        f"{sum(r[1] for r in rows_out)} kernels and copies")
+    for us, count, key in rows_out[:20]:
+        log(f"[profile] {us / 1e3:9.2f} ms {count:7d}x {key[:90]}")
+
+
+def phase_recursion_all(dev, profile: bool) -> dict:
+    t0 = time.perf_counter()
+    check_recursion_toy(dev)
+    launches = phase_recursion(dev, profile)
+    log(f"[recursion] phase 8 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import argparse
     import torch
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", action="store_true",
-                        help="also profile warm phase-6 and 7b proofs")
+                        help="also profile warm phase-6 and 7b proofs and "
+                        "the 8b root")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -896,7 +1210,8 @@ def main() -> int:
     phase_segment(dev)
     phase_main_path(dev, args.profile)
     check_full_segment(dev)
-    launches = phase_hash_segment(dev, args.profile)
+    phase_hash_segment(dev, args.profile)
+    launches = phase_recursion_all(dev, args.profile)
     for name, k in kernels.items():
         k["launches"] = launches[name]
     log(json.dumps({"kernels": list(kernels.values())}))

@@ -416,13 +416,14 @@ def test_toy_segment_from_the_port_emulator_equals_frozen_witness():
 
 
 def test_unported_syscall_names_its_table():
-    """Only SYS_VERIFY is left unported (it needs assumption receipts);
-    the keccak and SHA syscalls have their tables now
-    (tests/test_torch_full.py)."""
-    assert list(generation._UNPORTED_SYSCALLS) == [generation.SYSVERIFY]
+    """No syscall is left unported: SYS_VERIFY, the last, resolves its
+    claim against the assumption receipts (receipts.py) and names the
+    claim it cannot find (tests/test_torch_receipts.py holds it against
+    zkm_tpu)."""
+    assert not hasattr(generation, "_UNPORTED_SYSCALLS")
     ours, _ = _states(examples.build_composition_guest(), (bytes(32),))
     _, segs, _ = utils.split_prog_into_segs(ours, seg_size=1 << 20)
-    with pytest.raises(NotImplementedError, match="receipts.py"):
+    with pytest.raises(KeyError, match="Assumption Not Found: " + "00" * 32):
         generation.generate_segment_traces(segs[0], sponge=True, device=CPU)
 
 

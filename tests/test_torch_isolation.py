@@ -29,6 +29,10 @@ def test_port_imports_no_jax_and_no_reference_module():
                          check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("stark.prover", "native", "emulator.state",
-                 "witness.generation", "runtime.examples"):
+                 "witness.generation", "runtime.examples", "receipts",
+                 "export", "recursion", "recursion.dag",
+                 "recursion.symbolic", "recursion.verifier_dag",
+                 "recursion.shrink", "recursion.aggregate",
+                 "recursion.cache"):
         assert "zkm_tpu_torch." + name in result["imported"]
     assert result["bad"] == []

@@ -83,3 +83,60 @@ def proof_to_plain(all_proof) -> dict:
                           "roots_after": [int(v) for v in pv.roots_after.root],
                           "userdata": bytes(pv.userdata)},
     }
+
+
+def proof_from_plain(plain: dict):
+    """`proof_to_plain`'s dict (of this package's proof or of zkm_tpu's,
+    frozen) -> the port's `AllProof`, its arrays numpy u64."""
+    from .fri.proof import (FriInitialTreeProof, FriProof, FriQueryRound,
+                            FriQueryStep)
+    from .stark.cross_table_lookup import (GrandProductChallenge,
+                                           GrandProductChallengeSet)
+    from .stark.proof import (AllProof, MemRoots, PublicValues,
+                              StarkOpeningSet, StarkProof,
+                              StarkProofWithMetadata)
+
+    def u64(a):
+        return np.asarray(a, dtype=np.uint64).copy()
+
+    def fri(fp):
+        return FriProof(
+            commit_phase_merkle_caps=[u64(c) for c in
+                                      fp["commit_phase_merkle_caps"]],
+            query_round_proofs=[FriQueryRound(
+                initial_trees_proof=FriInitialTreeProof(
+                    evals_per_oracle=[u64(e) for e in q["initial_trees_proof"]
+                                      ["evals_per_oracle"]],
+                    merkle_proofs=[[u64(s) for s in sibs] for sibs in
+                                   q["initial_trees_proof"]["merkle_proofs"]]),
+                steps=[FriQueryStep(evals=u64(st["evals"]),
+                                    merkle_proof=[u64(s) for s in
+                                                  st["merkle_proof"]])
+                       for st in q["steps"]])
+                for q in fp["query_round_proofs"]],
+            final_poly=u64(fp["final_poly"]),
+            pow_witness=int(fp["pow_witness"]))
+
+    tables = []
+    for t in plain["stark_proofs"]:
+        p = t["proof"]
+        tables.append(StarkProofWithMetadata(
+            init_challenger_state=[int(v) for v in t["init_challenger_state"]],
+            proof=StarkProof(
+                trace_cap=u64(p["trace_cap"]),
+                auxiliary_polys_cap=u64(p["auxiliary_polys_cap"]),
+                quotient_polys_cap=u64(p["quotient_polys_cap"]),
+                openings=StarkOpeningSet(**{k: u64(v) for k, v in
+                                            p["openings"].items()}),
+                opening_proof=fri(p["opening_proof"])),
+            degree_bits=int(t["degree_bits"])))
+    pv = plain["public_values"]
+    return AllProof(
+        stark_proofs=tables,
+        ctl_challenges=GrandProductChallengeSet(
+            [GrandProductChallenge(int(b), int(g))
+             for b, g in plain["ctl_challenges"]]),
+        public_values=PublicValues(
+            roots_before=MemRoots([int(v) for v in pv["roots_before"]]),
+            roots_after=MemRoots([int(v) for v in pv["roots_after"]]),
+            userdata=bytes(pv["userdata"])))

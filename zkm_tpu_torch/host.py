@@ -3,7 +3,8 @@ proofs.
 
 Counterpart of zkm_tpu/host.py (`SegmentReceipt`,
 `public_values_for_segment`, `segment_traces`, `prove_segment`,
-`verify_segment_receipt`, `check_receipt_chain`, `prove_elf`): execute and
+`verify_segment_receipt`, `check_receipt_chain`, `prove_elf`,
+`prove_segments_with_assumptions`): execute and
 split a program (emulator/), generate each segment's witness
 (witness/generation.py), build the traces of a subset of the 12 tables
 (SPONGE_SUBSET by default, FULL_SUBSET for all) and prove them.
@@ -25,6 +26,7 @@ from .convert import traces_from_rows
 from .device import resolve_device
 from .emulator.state import Segment
 from .emulator.utils import load_elf_with_patch, split_prog_into_segs
+from .receipts import CompositeReceipt, InnerReceipt, Receipt, ReceiptClaim
 from .stark.all_stark import AllStark, Table, make_all_stark
 from .stark.config import StarkConfig
 from .stark.proof import AllProof, MemRoots, PublicValues
@@ -110,17 +112,18 @@ def trace_set_traces(trace_set: TraceSet, all_stark: AllStark,
 
 
 def segment_witness(seg: Segment, all_stark: AllStark, block_path: str = "",
-                    device=None, timer=None) -> TraceSet:
+                    device=None, timer=None, assumptions=()) -> TraceSet:
     """The segment's witness at natural heights (the page sponges on
     `device`), with the sponge ops of the subset's sponge tables, timed as
-    "witness"."""
+    "witness".  SYS_VERIFY resolves its claims against `assumptions`."""
     dev = resolve_device(device)
     with step(timer, "witness"):
         return generate_segment_traces(
             seg, block_path=block_path,
             sponge=Table.PoseidonSponge in all_stark.tables,
             keccak=Table.KeccakSponge in all_stark.tables,
-            sha=Table.ShaExtendSponge in all_stark.tables, device=dev)
+            sha=Table.ShaExtendSponge in all_stark.tables,
+            assumptions=assumptions, device=dev)
 
 
 def segment_traces(seg: Segment, all_stark: AllStark, block_path: str = "",
@@ -155,13 +158,19 @@ def prove_trace_set(trace_set: TraceSet, pv: PublicValues,
 def prove_segment(seg: Segment, config: Optional[StarkConfig] = None,
                   all_stark: Optional[AllStark] = None, block_path: str = "",
                   height_floors: Optional[Dict[Table, int]] = None,
-                  device=None, timer=None,
-                  debug: bool = False) -> SegmentReceipt:
-    """Re-execute a segment, generate its witness and prove the subset."""
+                  device=None, timer=None, debug: bool = False,
+                  assumptions=(), assumption_usage: Optional[list] = None
+                  ) -> SegmentReceipt:
+    """Re-execute a segment, generate its witness and prove the subset.
+    SYS_VERIFY resolves its claims against `assumptions`; the
+    (Assumption, AssumptionReceipt) pairs it used are appended to
+    `assumption_usage`."""
     dev = resolve_device(device)
     config = config or StarkConfig.standard_fast_config()
     all_stark = all_stark or make_all_stark()
-    ts = segment_witness(seg, all_stark, block_path, dev, timer)
+    ts = segment_witness(seg, all_stark, block_path, dev, timer, assumptions)
+    if assumption_usage is not None:
+        assumption_usage.extend(ts.assumptions_used)
     pv = public_values_for_segment(seg)
     proof = prove_trace_set(ts, pv, config, all_stark, height_floors, dev,
                             timer, debug)
@@ -211,3 +220,30 @@ def prove_elf(elf_path: str, args: List[str] = (),
                 for s in segments]
     check_receipt_chain(receipts)
     return receipts
+
+
+def prove_segments_with_assumptions(
+        segments: List[Segment], assumptions=(),
+        config: Optional[StarkConfig] = None,
+        all_stark: Optional[AllStark] = None, debug: bool = False,
+        block_path: str = "", device=None, timer=None) -> Receipt:
+    """Prove a segment chain under an assumption environment, producing a
+    `Receipt` (Segments, or Composite when SYS_VERIFY used an assumption):
+    zkMIPS's `prove_with_assumptions` and sha2-composition example
+    (prover.rs:58-127, fixed_recursive_verifier.rs:835-914)."""
+    dev = resolve_device(device)
+    usage: list = []
+    seg_receipts = [
+        prove_segment(s, config, all_stark, block_path, device=dev,
+                      timer=timer, debug=debug, assumptions=assumptions,
+                      assumption_usage=usage)
+        for s in segments]
+    check_receipt_chain(seg_receipts)
+    inner = InnerReceipt(
+        segments=seg_receipts,
+        claim=ReceiptClaim(elf_id=seg_receipts[0].pre_image_id,
+                           commit=seg_receipts[0].userdata))
+    if usage:
+        return Receipt.composite(CompositeReceipt(
+            program_receipt=inner, assumptions_used=usage))
+    return Receipt.segments(inner)

@@ -77,6 +77,12 @@ class ExtAlgebra:
 
     # -- batched-constraint support (a batch is a plain list of scalars) ----
 
+    def scalar_powers(self, alpha, k: int):
+        pows = [self.one]
+        for _ in range(k):
+            pows.append(self.mul(pows[-1], alpha))
+        return pows
+
     def weighted_sum(self, values, pows, k: int):
         acc = self.zero
         for i in range(k):
@@ -85,3 +91,6 @@ class ExtAlgebra:
 
     def scale_batch(self, values, s):
         return [self.mul(v, s) for v in values]
+
+    def stack_batch(self, items):
+        return list(items)

@@ -4,7 +4,7 @@ Copy of zkm_tpu/stark/proof.py (zkMIPS prover/src/proof.rs: StarkProof{trace_cap
 auxiliary_polys_cap, quotient_polys_cap, openings, opening_proof},
 StarkProofWithMetadata{init_challenger_state, proof}, AllProof{stark_proofs,
 ctl_challenges, public_values}, PublicValues{roots_before, roots_after,
-userdata}), plus `flatten_proof`, the reference's
+userdata}), plus `walk_proof`/`flatten_proof`, the reference's
 `recursion.flatten_proof` walk of every public scalar of a proof.
 """
 
@@ -34,6 +34,9 @@ class MemRoots:
         assert len(image_id) == 32
         return MemRoots([int.from_bytes(image_id[i:i + 4], "little")
                          for i in range(0, 32, 4)])
+
+    def to_image_id(self) -> bytes:
+        return b"".join(int(w).to_bytes(4, "little") for w in self.root)
 
 
 @dataclass
@@ -89,60 +92,106 @@ class AllProof:
         return [p.degree_bits for p in self.stark_proofs]
 
 
-def flatten_proof(all_proof: AllProof) -> List[int]:
-    """Every public scalar of the proof, in the order of the reference's
-    `recursion/verifier_dag.py:_walk_proof` (so the sha256 of its
-    little-endian u64 bytes equals the reference's digest)."""
-    out: List[int] = []
+@dataclass
+class WOpenings:
+    """A table's openings mirrored by `walk_proof`'s leaves."""
+    local_values: List            # C ext pairs
+    next_values: List
+    auxiliary_polys: List         # A ext pairs
+    auxiliary_polys_next: List
+    ctl_zs_first: List            # Z base leaves
+    quotient_polys: List          # Q ext pairs
 
-    def put(v):
-        out.append(int(v) % P)
+
+@dataclass
+class WFriProof:
+    commit_phase_merkle_caps: List       # per layer: [2^cap][4] leaves
+    query_rounds: List                   # (evals_per_oracle, init_proofs,
+    #                                       [(step evals, siblings)])
+    final_poly: List                     # ext pairs
+    pow_witness: object
+
+
+@dataclass
+class WStarkProof:
+    init_challenger_state: List
+    trace_cap: List
+    auxiliary_polys_cap: List
+    quotient_polys_cap: List
+    openings: WOpenings
+    opening_proof: WFriProof
+    degree_bits: int
+
+
+@dataclass
+class WAllProof:
+    stark_proofs: List
+    roots_before: List    # 8 leaves
+    roots_after: List     # 8 leaves
+    userdata: List        # 32 leaves
+
+
+def walk_proof(all_proof: AllProof, leaf) -> WAllProof:
+    """Apply `leaf` to every public scalar of the proof in one fixed order
+    (zkm_tpu/recursion/verifier_dag.py:_walk_proof's) and mirror the proof
+    with the results.  `flatten_proof` collects the scalars; the recursive
+    verifier (recursion/verifier_dag.py) makes each one a DAG input."""
+    pv = all_proof.public_values
+    roots_before = [leaf(v) for v in pv.roots_before.root]
+    roots_after = [leaf(v) for v in pv.roots_after.root]
+    userdata = [leaf(b) for b in pv.userdata]
 
     def cap(c):
-        for row in np.asarray(c):
-            for v in row:
-                put(v)
+        return [[leaf(v) for v in row] for row in np.asarray(c)]
 
     def exts(arr):
-        for r in np.asarray(arr):
-            put(r[0])
-            put(r[1])
+        return [(leaf(r[0]), leaf(r[1])) for r in np.asarray(arr)]
 
-    pv = all_proof.public_values
-    for v in list(pv.roots_before.root) + list(pv.roots_after.root) \
-            + list(pv.userdata):
-        put(v)
+    tables = []
     for pm in all_proof.stark_proofs:
-        pr, op, fp = pm.proof, pm.proof.openings, pm.proof.opening_proof
+        pr = pm.proof
+        op = pr.openings
+        fp = pr.opening_proof
+        rounds = []
         for rp in fp.query_round_proofs:
-            for e in rp.initial_trees_proof.evals_per_oracle:
-                for v in np.asarray(e):
-                    put(v)
-            for sibs in rp.initial_trees_proof.merkle_proofs:
-                for d in sibs:
-                    for v in np.asarray(d):
-                        put(v)
+            evals_per_oracle = [[leaf(v) for v in np.asarray(e)]
+                                for e in rp.initial_trees_proof.evals_per_oracle]
+            init_proofs = [[[leaf(v) for v in np.asarray(d)] for d in sibs]
+                           for sibs in rp.initial_trees_proof.merkle_proofs]
+            steps = []
             for st in rp.steps:
-                exts(st.evals)
-                for d in st.merkle_proof:
-                    for v in np.asarray(d):
-                        put(v)
-        for v in pm.init_challenger_state:
-            put(v)
-        cap(pr.trace_cap)
-        cap(pr.auxiliary_polys_cap)
-        cap(pr.quotient_polys_cap)
-        exts(op.local_values)
-        exts(op.next_values)
-        exts(op.auxiliary_polys)
-        exts(op.auxiliary_polys_next)
-        for v in np.asarray(op.ctl_zs_first):
-            put(v)
-        exts(op.quotient_polys)
-        for c in fp.commit_phase_merkle_caps:
-            cap(c)
-        exts(fp.final_poly)
-        put(fp.pow_witness)
+                steps.append((exts(st.evals),
+                              [[leaf(v) for v in np.asarray(d)]
+                               for d in st.merkle_proof]))
+            rounds.append((evals_per_oracle, init_proofs, steps))
+        tables.append(WStarkProof(
+            init_challenger_state=[leaf(v) for v in pm.init_challenger_state],
+            trace_cap=cap(pr.trace_cap),
+            auxiliary_polys_cap=cap(pr.auxiliary_polys_cap),
+            quotient_polys_cap=cap(pr.quotient_polys_cap),
+            openings=WOpenings(
+                local_values=exts(op.local_values),
+                next_values=exts(op.next_values),
+                auxiliary_polys=exts(op.auxiliary_polys),
+                auxiliary_polys_next=exts(op.auxiliary_polys_next),
+                ctl_zs_first=[leaf(v) for v in np.asarray(op.ctl_zs_first)],
+                quotient_polys=exts(op.quotient_polys)),
+            opening_proof=WFriProof(
+                commit_phase_merkle_caps=[cap(c)
+                                          for c in fp.commit_phase_merkle_caps],
+                query_rounds=rounds,
+                final_poly=exts(fp.final_poly),
+                pow_witness=leaf(fp.pow_witness)),
+            degree_bits=pm.degree_bits))
+    return WAllProof(tables, roots_before, roots_after, userdata)
+
+
+def flatten_proof(all_proof: AllProof) -> List[int]:
+    """Every public scalar of the proof in `walk_proof`'s order (so the
+    sha256 of its little-endian u64 bytes equals the reference's digest,
+    and it is the recursive verifier's public-input vector)."""
+    out: List[int] = []
+    walk_proof(all_proof, lambda v: out.append(int(v) % P))
     return out
 
 

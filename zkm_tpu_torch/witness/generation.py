@@ -6,9 +6,9 @@ generation/mod.rs) for the 12 tables.  Re-executes a segment
 instruction by instruction, filling one CPU row per cycle (columns per
 tables/cpu/columns.py) and pushing memory / arithmetic / logic / sponge op
 logs that become the other tables; returns a `witness.trace_set.TraceSet`.
-The VERIFY syscall raises NotImplementedError: it needs assumption
-receipts (zkm_tpu/receipts.py), which are not ported.  Page sponges run on
-the generation state's device (witness/sponge.py).
+The VERIFY syscall resolves its claim digest against the assumption
+receipts passed in (receipts.py).  Page sponges run on the generation
+state's device (witness/sponge.py).
 
 Semantics follow the *emulator* (emulator/state.py) exactly — the
 witness must reproduce the segment's post-state — mapped onto the
@@ -36,6 +36,7 @@ import numpy as np
 from ..emulator.state import SHA_COMPRESS_K, Segment, State, sign_extension
 from ..field import goldilocks as gl
 from ..hash.keccak import keccak256
+from ..receipts import Assumption, find_assumption
 from ..tables import arithmetic as arith
 from ..tables import logic as logic_mod
 from ..tables.cpu import columns as cc
@@ -77,9 +78,11 @@ class GenerationState:
     """Prover-side machine state (generation/state.rs:208-300)."""
 
     def __init__(self, seg: Segment, device=None, sponge: bool = False,
-                 keccak: bool = False, sha: bool = False):
+                 keccak: bool = False, sha: bool = False, assumptions=()):
         self.seg = seg
         self.device = device            # where the page sponges run
+        # what SYS_VERIFY resolves claim digests against
+        self.assumptions = list(assumptions)
         # which sponge tables are proved: their ops are logged only then,
         # so that a smaller subset's memory CTL stays balanced
         self.sponge_enabled = sponge
@@ -711,11 +714,6 @@ SYSVERIFY = 0xF2
 FD_STDIN, FD_STDOUT, FD_STDERR, FD_PUBLIC_VALUES, FD_HINT = range(5)
 MIPSEBADF = 9
 
-_UNPORTED_SYSCALLS = {
-    SYSVERIFY: "receipts.py (assumption receipts)",
-}
-
-
 def _gen_syscall(s: GenerationState, row, block_path: str = ""):
     row[cc.OP.syscall] = 1
     sysnum = s.reg_read(2, 0, row)
@@ -841,10 +839,8 @@ def _gen_syscall(s: GenerationState, row, block_path: str = ""):
     elif sysnum == SYSSHAEXTEND:
         assert a1 == 0, "sha_extend arg2 must be 0"
         post = lambda: _gen_sha_extend(s, a0)
-    elif sysnum in _UNPORTED_SYSCALLS:
-        raise NotImplementedError(
-            f"syscall {sysnum:#x} at pc {s.pc:#x} needs "
-            f"{_UNPORTED_SYSCALLS[sysnum]}, not ported to zkm_tpu_torch")
+    elif sysnum == SYSVERIFY:
+        post = lambda: _verify(s, a1, a2)
     else:
         row[SC.sysnum.start + 11] = 1
 
@@ -862,6 +858,22 @@ def _read_mem_bytes(s: GenerationState, addr: int, length: int) -> bytes:
         word = s.mget(0, SEG_CODE, (addr + i) & 0xFFFFFFFC)
         out.append((word >> (24 - ((addr + i) & 3) * 8)) & 0xFF)
     return bytes(out)
+
+
+def _verify(s: GenerationState, addr: int, size: int):
+    """SYS_VERIFY: read the claim digest and resolve it against the
+    environment's assumption receipts (operation.rs verify:991-1022)."""
+    assert size == 32
+    row = s.new_row()
+    digest = bytearray()
+    for i in range(8):
+        v = s.mem_read_gp(i, addr + i * 4, row)
+        digest += v.to_bytes(4, "big")
+    s.push_row(row)
+    digest = bytes(digest)
+    s.t.claim_digests.append(digest)
+    used = find_assumption(digest, s.assumptions)
+    s.t.assumptions_used.insert(0, (Assumption(digest), used))
 
 
 def _load_input(s: GenerationState, addr: int, size: int):
@@ -1212,13 +1224,14 @@ def _gen_sha_compress(s: GenerationState, w_ptr: int, h_ptr: int):
 
 def generate_segment_traces(seg: Segment, block_path: str = "",
                             sponge: bool = False, keccak: bool = False,
-                            sha: bool = False, min_rows: int = 64,
-                            device=None) -> TraceSet:
+                            sha: bool = False, assumptions=(),
+                            min_rows: int = 64, device=None) -> TraceSet:
     """Bootstrap + simulate + pad; returns the TraceSet of the tables.
     With `sponge` the page and image-id sponges are generated, on
     `device` (None: the card); with `keccak` / `sha` the ops of the Keccak
-    and SHA tables are logged."""
-    s = GenerationState(seg, device, sponge, keccak, sha)
+    and SHA tables are logged.  SYS_VERIFY resolves its claims against
+    `assumptions` (receipts with a `claim_digest()`)."""
+    s = GenerationState(seg, device, sponge, keccak, sha, assumptions)
     generate_bootstrap(s, sponge=sponge)
 
     step = 0

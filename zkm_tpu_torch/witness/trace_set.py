@@ -69,6 +69,10 @@ class TraceSet:
     keccak_sponge_ops: List[KeccakSpongeOp] = field(default_factory=list)
     sha_extend_ops: List[ShaExtendOp] = field(default_factory=list)
     sha_compress_ops: List[ShaCompressOp] = field(default_factory=list)
+    # SYS_VERIFY's claim digests and the [(Assumption, AssumptionReceipt)]
+    # they resolved to (not part of the npz: no table reads them)
+    claim_digests: List[bytes] = field(default_factory=list)
+    assumptions_used: List[tuple] = field(default_factory=list)
 
 
 def pad_cpu_rows(rows: np.ndarray, min_rows: int) -> np.ndarray:
