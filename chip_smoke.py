@@ -66,18 +66,44 @@ Phases (any failure exits nonzero):
      table and the DAG counts; segments, inner digests, the shrink DAG's
      counts, program cap and heights must equal zkm_tpu's record
      (zkm_tpu_torch/data/recursion_fib_reference.json); with --profile
-     also the root's prove under torch.profiler.
+     also the root's prove under torch.profiler;
+  9. from a program to an on-chain proof: (a) the env-var CLI
+     (`python -m zkm_tpu_torch.cli`), each command a process on the card:
+     split-seg of fib(40)'s ELF (runtime.examples.guest_elf) at SEG_SIZE
+     1800, whose segment files must be byte-equal to zkm_tpu.cli's
+     (zkm_tpu_torch/data/cli_reference.json), then prove-seg of segment 0
+     and prove-elf of the ELF, each receipt verified, each command timed
+     with the K1/K2 launches it reports; (b) the native C++ core: the
+     memalloc guest split at 2^16 cycles with State(native=True), against
+     zkm_tpu's native record (zkm_tpu_torch/data/native_segments_
+     reference.json) and, for its last image id, phase 6's record; the
+     record's other cases (memalloc at 2^14 in 5 segments, fib's ELF
+     through load_elf_with_patch(native=True), the hash guest); one native
+     segment proved and verified; emulate seconds native against Python;
+     (c) the STARK -> Groth16/BN254 wrap on the host: one seeded setup of
+     the wrap circuit, the seeded wrap of the record's fixed document bit
+     for bit against zkm_tpu's (zkm_tpu_torch/data/wrap_reference.json:
+     verifier.sol's hash, proof and public inputs), then phase 8b's root
+     exported (export.export_proof with its program cap) and wrapped in
+     process and then through `cli wrap` (its key read from
+     ZKM_CIRCUIT_CACHE): both verify, a changed public input is rejected,
+     public_inputs[0] is the claim limbs' MiMC digest and verifier.sol has
+     one ecMulAdd line per public input.
 The line before the last is {"kernels": [...]}, with the launches of
-phase 8b; the last line is {"ok": true, "device": {...}}.
+phases 8b and 9 added up (9a's from what its commands print); the last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -916,7 +942,9 @@ def _roots(a: int, b: int):
 
 
 def _expect(what: str, got, want) -> None:
-    log(f"[recursion] {what}: {got} == zkm_tpu's: {got == want}")
+    shown = str(got)
+    shown = shown if len(shown) <= 400 else shown[:400] + "..."
+    log(f"[check] {what}: {shown} == zkm_tpu's: {got == want}")
     if got != want:
         raise AssertionError(f"{what} differs from zkm_tpu's record: {got} "
                              f"!= {want}")
@@ -1040,13 +1068,13 @@ def _heights(proof) -> list:
     return [p.degree_bits for p in proof.stark_proofs]
 
 
-def phase_recursion(dev, profile: bool) -> dict:
-    """Phase 8b, this slice's main path: two real fib segments proved,
-    shrunk and aggregated into one root, each step timed with its launches
-    and peak memory, held against zkm_tpu's record.  Returns the path's
-    launches."""
+def phase_recursion(dev, profile: bool):
+    """Phase 8b: two real fib segments proved, shrunk and aggregated into
+    one root, each step timed with its launches and peak memory, held
+    against zkm_tpu's record.  Returns the path's launches and the root's
+    export document (with its program cap), what phase 9c wraps."""
     import torch
-    from zkm_tpu_torch import host
+    from zkm_tpu_torch import export, host
     from zkm_tpu_torch.recursion.aggregate import AggregationTree
     from zkm_tpu_torch.recursion.shrink import (build_shrink_circuit,
                                                 verify_shrink)
@@ -1148,7 +1176,8 @@ def phase_recursion(dev, profile: bool) -> dict:
                              f"{launches}, {timers['aggregate'].launches}")
     if profile:
         profile_root(node, leaves, dev)
-    return launches
+    return launches, export.export_proof(root.proof, config,
+                                         program_cap=node.program_cap)
 
 
 def profile_root(node, leaves, dev) -> None:
@@ -1180,12 +1209,278 @@ def profile_root(node, leaves, dev) -> None:
         log(f"[profile] {us / 1e3:9.2f} ms {count:7d}x {key[:90]}")
 
 
-def phase_recursion_all(dev, profile: bool) -> dict:
+def phase_recursion_all(dev, profile: bool):
     t0 = time.perf_counter()
     check_recursion_toy(dev)
-    launches = phase_recursion(dev, profile)
+    out = phase_recursion(dev, profile)
     log(f"[recursion] phase 8 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# -- phase 9: the program-to-on-chain pipeline --------------------------------
+
+CLI_LAUNCHES = re.compile(r"launches: K1 (\d+), K2 (\d+)")
+
+
+def run_cli(cmd: str, env: dict):
+    """(stdout, launches) of `python -m zkm_tpu_torch.cli cmd` on the card
+    (no DEVICE) with `env` added, logged with its seconds; raises if it
+    fails."""
+    full = {k: v for k, v in os.environ.items() if k != "DEVICE"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "zkm_tpu_torch.cli", cmd],
+                          cwd=HERE, env={**full, **env}, capture_output=True,
+                          text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    out = proc.stdout
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {cmd} failed (rc {proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+    m = CLI_LAUNCHES.search(out)
+    launches = {"poseidon_permute": int(m[1]), "goldilocks_ntt": int(m[2])} \
+        if m else {}
+    log(f"[cli] {cmd}: {seconds:.1f} s of command time; "
+        + " | ".join(out.strip().splitlines()))
+    return out, launches
+
+
+def phase_cli(tmp: str) -> dict:
+    """Phase 9a: the env-var CLI as a user runs it, each command a process
+    on the card: split-seg of fib(40)'s ELF at SEG_SIZE 1800 (files
+    byte-equal to zkm_tpu.cli's, data/cli_reference.json), prove-seg of
+    segment 0 and prove-elf of the ELF, each receipt verified.  Returns
+    the launches the commands report."""
+    from zkm_tpu_torch.runtime.examples import build_fib_guest, guest_elf
+    from zkm_tpu_torch.witness.trace_set import DATA
+
+    with open(os.path.join(DATA, "cli_reference.json")) as f:
+        record = json.load(f)
+    with open(os.path.join(DATA, "recursion_fib_reference.json")) as f:
+        fib = json.load(f)
+    elf, segs = os.path.join(tmp, "fib.elf"), os.path.join(tmp, "segs")
+    with open(elf, "wb") as f:
+        f.write(guest_elf(build_fib_guest(FIB_N)))
+    t0 = time.perf_counter()
+    _, split = run_cli("split-seg", {"ELF_PATH": elf, "SEG_OUTPUT": segs,
+                                     "SEG_SIZE": str(record["seg_size"])})
+    files, got = {}, []
+    for name in sorted(os.listdir(segs), key=int):
+        with open(os.path.join(segs, name), "rb") as f:
+            data = f.read()
+        files[name] = hashlib.sha256(data).hexdigest()
+        seg = json.loads(data)
+        got.append({"step": seg["step"],
+                    "pre_image_id": bytes(seg["pre_image_id"]).hex(),
+                    "image_id": bytes(seg["image_id"]).hex()})
+    _expect("9a split-seg's segment files (sha256) == zkm_tpu.cli's",
+            files, record["files_sha256"])
+    _expect("9a split-seg's segments (steps, image ids)", got,
+            record["segments"])
+    _expect("9a steps of the ELF's segments == 8b's raw fib segments",
+            [g["step"] for g in got], [g["step"] for g in fib["segments"]])
+    out, prove_seg = run_cli("prove-seg",
+                             {"SEG_FILE": os.path.join(segs, "0")})
+    want = f"segment 0 proved and verified; image id {got[0]['image_id']}"
+    if want not in out:
+        raise AssertionError(f"prove-seg printed no `{want}`")
+    out, prove_elf = run_cli("prove-elf", {"ELF_PATH": elf})
+    want = f"final image id {got[-1]['image_id']}"
+    if want not in out:
+        raise AssertionError(f"prove-elf printed no `{want}`")
+    launches = {k: split[k] + prove_seg[k] + prove_elf[k] for k in split}
+    if not (split["poseidon_permute"] and all(prove_seg.values())
+            and all(prove_elf.values())):
+        raise AssertionError(f"a CLI command launched no kernel: split "
+                             f"{split}, prove-seg {prove_seg}, prove-elf "
+                             f"{prove_elf}")
+    log(f"[cli] 9a in {time.perf_counter() - t0:.1f} s; launches {launches}")
     return launches
+
+
+def phase_native(dev, tmp: str) -> dict:
+    """Phase 9b: the native C++ core on the card: the memalloc guest's
+    2^16-cycle split (and the other cases of data/native_segments_
+    reference.json) against zkm_tpu's native record, its last image id
+    against the Python path's (phase 6's record), emulate seconds native
+    against Python, and one native segment proved and verified.  Returns
+    the launches of the native split and proof."""
+    import torch
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.emulator import native
+    from zkm_tpu_torch.emulator.state import State
+    from zkm_tpu_torch.emulator.utils import (load_elf_with_patch,
+                                              split_prog_into_segs)
+    from zkm_tpu_torch.runtime import examples
+    from zkm_tpu_torch.witness.trace_set import DATA
+
+    with open(os.path.join(DATA, "native_segments_reference.json")) as f:
+        record = json.load(f)["cases"]
+    with open(os.path.join(DATA, "memalloc_segment_reference.json")) as f:
+        python_record = json.load(f)
+    t0 = time.perf_counter()
+    native.load_core()
+    log(f"[native] core built with g++ and loaded in "
+        f"{time.perf_counter() - t0:.1f} s ({native.library_path()})")
+
+    def split(case: str, use_native: bool = True):
+        want = record[case]
+        name, args = want["guest"].split("(")
+        args = [int(a) for a in args.rstrip(")").split(",") if a.strip()]
+        prog = getattr(examples, name)(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if want["elf"]:
+            path = os.path.join(tmp, f"{case}.elf")
+            with open(path, "wb") as f:
+                f.write(examples.guest_elf(prog))
+            st = load_elf_with_patch(path, [], dev, native=use_native)
+        else:
+            st = State(dev, native=use_native)
+            st.memory.set_memory_range(0, prog)
+        if name == "build_hash_guest":
+            st.add_input_stream_bytes(examples.hash_guest_input())
+        total, segs, final = split_prog_into_segs(st,
+                                                  seg_size=want["seg_size"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = {"total_steps": total, "exit_code": final.exit_code,
+               "segments": [{"step": s.step, "pc": s.pc, "end_pc": s.end_pc,
+                             "pre_image_id": s.pre_image_id.hex(),
+                             "image_id": s.image_id.hex(),
+                             "file_sha256": hashlib.sha256(
+                                 s.to_json().encode()).hexdigest()}
+                            for s in segs]}
+        return got, segs, seconds
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    got, _, native_s = split("memalloc")
+    _expect("9b memalloc's native split (steps, pcs, image ids, files) == "
+            "zkm_tpu's native record",
+            got, {k: record["memalloc"][k] for k in got})
+    _expect("9b memalloc's last image id == the Python path's (phase 6's "
+            "record)", got["segments"][-1]["image_id"],
+            python_record["segments"][-1]["image_id"])
+    got, segs, seconds = split("memalloc_2^14")
+    _expect("9b memalloc_2^14's native split == zkm_tpu's native record", got,
+            {k: record["memalloc_2^14"][k] for k in got})
+    log(f"[native] memalloc_2^14: {len(segs)} native segments in "
+        f"{seconds:.3f} s")
+    seg = segs[1]
+    timer = LaunchTimer(dev)
+    receipt = host.prove_segment(seg, device=dev, timer=timer)
+    host.verify_segment_receipt(receipt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_path
+    launches = read_launches()
+    log(f"[native] native segment {seg.segment_id} of memalloc at seg_size "
+        f"2^14 ({seg.step} steps, from pc {seg.pc:#x}) proved and verified "
+        f"({timer.report()})")
+    if not all(launches.values()):
+        raise AssertionError(f"9b launched no kernel of {launches}")
+    _, _, python_s = split("memalloc", use_native=False)
+    log(f"[native] emulate memalloc{MEMALLOC_ARGS} at 2^16 cycles (61,461 "
+        f"steps, page hashing on K1): native {native_s:.3f} s, Python "
+        f"{python_s:.3f} s")
+    for case in ("fib_elf", "hash"):
+        got, _, seconds = split(case)
+        _expect(f"9b {case}'s native split == zkm_tpu's native record", got,
+                {k: record[case][k] for k in got})
+        log(f"[native] {case}: {len(got['segments'])} native segment(s) in "
+            f"{seconds:.3f} s")
+    log(f"[native] 9b path (native splits + one proof) {wall:.1f} s; "
+        f"launches {launches}")
+    return launches
+
+
+def read_wrapped_json(text: str):
+    """The Groth16 proof and public inputs of `cli wrap`'s
+    snark_proof_with_public_inputs.json (WrappedProof.to_json's layout)."""
+    from zkm_tpu_torch.snark import bn254 as c, groth16 as g16
+    d = json.loads(text)
+    pf = d["proof"]
+    a, cc = ((c.FQ(int(x)), c.FQ(int(y))) for x, y in (pf["a"], pf["c"]))
+    b = tuple(c.FQ2([int(v) for v in xy]) for xy in pf["b"])
+    return g16.Proof(a=a, b=b, c=cc), [int(v) for v in d["public_inputs"]]
+
+
+def phase_wrap(root_doc: dict, tmp: str) -> None:
+    """Phase 9c: the STARK -> Groth16 wrap on the host with one seeded key:
+    the record's fixed document bit for bit against zkm_tpu's
+    (data/wrap_reference.json), then phase 8b's root wrapped in process and
+    then through `cli wrap` (the key read from ZKM_CIRCUIT_CACHE), both
+    verified, a changed public input rejected."""
+    from zkm_tpu_torch.snark import contract, groth16 as g16, mimc, wrap
+    from zkm_tpu_torch.witness.trace_set import DATA
+
+    with open(os.path.join(DATA, "wrap_reference.json")) as f:
+        record = json.load(f)
+    with open(os.path.join(DATA, "recursion_toy_reference.json")) as f:
+        fixed_doc = json.loads(json.load(f)["root_proof_json"])
+    t0 = time.perf_counter()
+    pk = wrap.groth16_setup(seed=bytes.fromhex(record["setup_seed"]))
+    wrap.save_proving_key(pk, tmp)
+    log(f"[wrap] seeded setup of the wrap circuit (4,572 constraints): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    fixed = wrap.wrap_stark_bn254(
+        fixed_doc, pk, blind_seed=bytes.fromhex(record["blind_seed"]))
+    sol = contract.emit_verifier_sol(pk.vk)
+    _expect("9c seeded wrap of the record's document (vk via verifier.sol, "
+            "proof a/b/c, public inputs) == zkm_tpu's",
+            (hashlib.sha256(sol.encode()).hexdigest(), fixed.to_json()),
+            (record["verifier_sol_sha256"], record["proof_json"]))
+    log(f"[wrap] record's document: prove + verify "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    wrapped = wrap.wrap_stark_bn254(root_doc, pk)
+    t1 = time.perf_counter()
+    publics = wrapped.public_inputs
+    ok = g16.verify(pk.vk, publics, wrapped.proof)
+    t2 = time.perf_counter()
+    changed = [publics[0], publics[1] ^ 1] + publics[2:]
+    rejected = not g16.verify(pk.vk, changed, wrapped.proof)
+    digest = mimc.hash_elements(wrap.claim_limbs(root_doc))
+    log(f"[wrap] 8b root in process: prove (with its own verify) "
+        f"{t1 - t0:.1f} s, verify {t2 - t1:.2f} s; verifies: {ok}; a "
+        f"changed public input is rejected: {rejected}; public_inputs[0] "
+        f"== MiMC(claim limbs): {publics[0] == digest}")
+    if not (ok and rejected and publics[0] == digest):
+        raise AssertionError("the 8b root's wrap failed a check")
+
+    doc_path, out_dir = (os.path.join(tmp, "root.json"),
+                         os.path.join(tmp, "wrap"))
+    with open(doc_path, "w") as f:
+        json.dump(root_doc, f)
+    run_cli("wrap", {"PROOF_JSON": doc_path, "OUTPUT_DIR": out_dir,
+                     "ZKM_CIRCUIT_CACHE": tmp})
+    with open(os.path.join(out_dir, "snark_proof_with_public_inputs.json")) \
+            as f:
+        cli_proof, cli_publics = read_wrapped_json(f.read())
+    with open(os.path.join(out_dir, "verifier.sol")) as f:
+        cli_sol = f.read()
+    ok = g16.verify(pk.vk, cli_publics, cli_proof)
+    log(f"[wrap] cli wrap's proof verifies: {ok}; its public inputs == the "
+        f"in-process wrap's: {cli_publics == publics}; verifier.sol == the "
+        f"key's, with {cli_sol.count('ecMulAdd(vkx,')} ecMulAdd lines for "
+        f"{len(publics)} public inputs")
+    if not (ok and cli_publics == publics and cli_sol == sol
+            and cli_sol.count("ecMulAdd(vkx,") == len(publics)):
+        raise AssertionError("cli wrap's output failed a check")
+
+
+def phase_pipeline(dev, tmp: str, root_doc: dict, launches: dict) -> dict:
+    """Phase 9: the CLI, the native core and the wrap.  Returns the
+    launches of phases 8b and 9 added up."""
+    t0 = time.perf_counter()
+    cli = phase_cli(tmp)
+    nat = phase_native(dev, tmp)
+    phase_wrap(root_doc, tmp)
+    log(f"[pipeline] phase 9 in {time.perf_counter() - t0:.1f} s")
+    return {k: launches[k] + cli[k] + nat[k] for k in launches}
 
 
 def main() -> int:
@@ -1203,6 +1498,7 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
 
+    t_start = time.perf_counter()
     phase_build()
     kernels = phase_kernels(rng, dev)
     phase_commits(rng, dev)
@@ -1211,7 +1507,10 @@ def main() -> int:
     phase_main_path(dev, args.profile)
     check_full_segment(dev)
     phase_hash_segment(dev, args.profile)
-    launches = phase_recursion_all(dev, args.profile)
+    launches, root_doc = phase_recursion_all(dev, args.profile)
+    with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
+        launches = phase_pipeline(dev, tmp, root_doc, launches)
+    log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     for name, k in kernels.items():
         k["launches"] = launches[name]
     log(json.dumps({"kernels": list(kernels.values())}))

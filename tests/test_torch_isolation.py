@@ -33,6 +33,9 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "export", "recursion", "recursion.dag",
                  "recursion.symbolic", "recursion.verifier_dag",
                  "recursion.shrink", "recursion.aggregate",
-                 "recursion.cache"):
+                 "recursion.cache", "snark", "snark.bn254", "snark.r1cs",
+                 "snark.mimc", "snark.groth16", "snark.wrap",
+                 "snark.contract", "cli", "emulator.native",
+                 "runtime.build"):
         assert "zkm_tpu_torch." + name in result["imported"]
     assert result["bad"] == []

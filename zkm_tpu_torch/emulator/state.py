@@ -1,11 +1,12 @@
 """MIPS32 zkVM emulator: interpreter, syscalls, segmentation.
 
-Copy of zkm_tpu/emulator/state.py (zkMIPS emulator/src/state.rs), on the
-pure-Python interpreter.  Semantics are mirrored exactly (instruction
-behavior, branch delay slots, syscall ABI, cycle metering, segment image
-ids).  The interpreter loop is host-side scalar code (inherently
-sequential); the reference's C++ interpreter core is not ported.  A
-`State` carries the device its memory hashes pages on (None: the card).
+Copy of zkm_tpu/emulator/state.py (zkMIPS emulator/src/state.rs).
+Semantics are mirrored exactly (instruction behavior, branch delay slots,
+syscall ABI, cycle metering, segment image ids).  The interpreter loop is
+host-side scalar code (inherently sequential); with `native=True` the C++
+core (`emulator/native.py`) runs it and hands every syscall back to
+`mips_step`.  A `State` carries the device its memory hashes pages on
+(None: the card).
 
 Syscall numbers (state.rs:598-918): SHA_EXTEND=0x300105, SHA_COMPRESS=
 0x010106, KECCAK=0x010109, HINT_LEN=0xF0, HINT_READ=0xF1, VERIFY=0xF2,
@@ -137,8 +138,12 @@ class Segment:
 
 
 class State:
-    def __init__(self, device=None):
-        self.memory = Memory(device)
+    def __init__(self, device=None, native: bool = False):
+        if native:
+            from .native import CoreMemory
+            self.memory = CoreMemory(device)
+        else:
+            self.memory = Memory(device)
         self.registers = [0] * 32
         self.pc = 0
         self.next_pc = 4
@@ -161,9 +166,10 @@ class State:
     # -- loading -------------------------------------------------------------
 
     @staticmethod
-    def load_elf_bytes(data: bytes, device=None) -> "State":
+    def load_elf_bytes(data: bytes, device=None,
+                       native: bool = False) -> "State":
         f = parse_elf(data)
-        s = State(device)
+        s = State(device, native)
         s.pc = f.entry & M32
         s.next_pc = (f.entry + 4) & M32
         s.heap = 0x20000000
@@ -773,6 +779,36 @@ class InstrumentedState:
         return (self.state.cycle
                 + (self.state.memory.page_count() + 1) * PAGE_CYCLES
                 + RESERVE_CYCLES)
+
+    def run_fast(self, max_steps: int) -> int:
+        """Run up to max_steps using the native core when the state has one.
+
+        The core returns at every syscall, which is then executed by the
+        Python interpreter (single source of truth for syscall semantics);
+        a fault of the core is replayed in Python and raises.  Returns the
+        number of steps executed.
+        """
+        mem = self.state.memory
+        if not hasattr(mem, "run"):  # pure-Python memory: no native core
+            done = 0
+            while done < max_steps and not self.state.exited:
+                self.mips_step()
+                done += 1
+            return done
+        from .native import STOP_FAULT, STOP_SYSCALL
+        total = 0
+        while total < max_steps and not self.state.exited:
+            reason, done = mem.run(self.state, max_steps - total)
+            total += done
+            if reason == STOP_SYSCALL and not self.state.exited:
+                before = self.state.step
+                self.mips_step()  # executes the syscall via Python
+                total += self.state.step - before
+            elif reason == STOP_FAULT:
+                # replay the faulting instruction in Python for a good error
+                self.mips_step()
+                raise RuntimeError("native core fault not reproduced")
+        return total
 
     def split_segment(self, emit: bool, output_dir: Optional[str] = None
                       ) -> Optional[Segment]:

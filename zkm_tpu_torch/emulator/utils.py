@@ -1,7 +1,7 @@
 """Execution drivers: load + split programs into segments.
 
-Copy of zkm_tpu/emulator/utils.py (zkMIPS emulator/src/utils.rs), on the
-pure-Python interpreter.  Each driver hashes pages on its state's device.
+Copy of zkm_tpu/emulator/utils.py (zkMIPS emulator/src/utils.rs).  Each
+function hashes pages on its state's device.
 """
 
 from __future__ import annotations
@@ -9,14 +9,15 @@ from __future__ import annotations
 import os
 from typing import List, Optional, Tuple
 
-from .state import (InstrumentedState, Segment, State, SEGMENT_STEPS)
+from .state import (InstrumentedState, PAGE_CYCLES, RESERVE_CYCLES, Segment,
+                    State, SEGMENT_STEPS)
 
 
-def load_elf_with_patch(elf_path: str, args: List[str],
-                        device=None) -> State:
+def load_elf_with_patch(elf_path: str, args: List[str], device=None,
+                        native: bool = False) -> State:
     with open(elf_path, "rb") as f:
         data = f.read()
-    state = State.load_elf_bytes(data, device)
+    state = State.load_elf_bytes(data, device, native)
     state.patch_elf()
     state.patch_stack(args)
     return state
@@ -31,14 +32,31 @@ def split_prog_into_segs(state: State, seg_path: Optional[str] = None,
 
     Returns (total_steps, segments, final state).  Segments are returned
     in-memory and also written to seg_path if given.
+
+    With a native-core state the hot loop runs in C++ in chunks sized to
+    half the remaining cycle budget (each step costs >= 1 cycle, so the
+    split lands at most one chunk past the budget — segment boundaries may
+    exceed seg_size slightly, which the continuation protocol permits, and
+    differ from the Python path's).
     """
     ist = InstrumentedState(state, block_path)
+    native = hasattr(state.memory, "run")
     if seg_path:
         os.makedirs(seg_path, exist_ok=True)
     ist.split_segment(False)
     segments: List[Segment] = []
     while True:
-        cycles = ist.step()
+        if native:
+            est = (ist.state.cycle
+                   + (ist.state.memory.page_count() + 1) * PAGE_CYCLES
+                   + RESERVE_CYCLES)
+            budget = max(1, (seg_size - est) // 2) if est < seg_size else 1
+            ist.run_fast(budget)
+            cycles = (ist.state.cycle
+                      + (ist.state.memory.page_count() + 1) * PAGE_CYCLES
+                      + RESERVE_CYCLES)
+        else:
+            cycles = ist.step()
         if ist.state.exited:
             break
         if max_steps is not None and \

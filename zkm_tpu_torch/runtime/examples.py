@@ -10,6 +10,8 @@ committed public values from the output stream.
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 
 from .asm import Asm
@@ -240,3 +242,18 @@ def build_memalloc_guest(n_blocks: int = 8, block_words: int = 64) -> bytes:
     guest.commit(a, 0x3000, 4)
     guest.halt(a, 0)
     return a.assemble()
+
+
+def guest_elf(prog: bytes) -> bytes:
+    """Raw program bytes as a 32-bit big-endian MIPS ELF: one PT_LOAD at
+    address 0 (where the assembler places a program), entry 0, no
+    sections.  It is what the ELF entry points take
+    (`emulator.utils.load_elf_with_patch`, `host.prove_elf`, the CLI);
+    they also set up the stack, so its segments are not those of the raw
+    program loaded at 0."""
+    data_off = 0x100
+    header = b"\x7fELF" + bytes([1, 2, 1]) + bytes(9) + struct.pack(
+        ">HHIIIIIHHHHHH", 2, 8, 1, 0, 52, 0, 0, 52, 32, 1, 40, 0, 0)
+    phdr = struct.pack(">8I", 1, data_off, 0, 0, len(prog), len(prog), 5,
+                       0x1000)
+    return header + phdr + bytes(data_off - 84) + prog
