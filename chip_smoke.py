@@ -84,14 +84,31 @@ Phases (any failure exits nonzero):
      the wrap circuit, the seeded wrap of the record's fixed document bit
      for bit against zkm_tpu's (zkm_tpu_torch/data/wrap_reference.json:
      verifier.sol's hash, proof and public inputs), then phase 8b's root
-     exported (export.export_proof with its program cap) and wrapped in
-     process and then through `cli wrap` (its key read from
-     ZKM_CIRCUIT_CACHE): both verify, a changed public input is rejected,
-     public_inputs[0] is the claim limbs' MiMC digest and verifier.sol has
-     one ecMulAdd line per public input.
+     exported (export.export_proof with its program cap) and wrapped by
+     `cli wrap` (its key read from ZKM_CIRCUIT_CACHE): it verifies, a
+     changed public input is rejected, public_inputs[0] is the claim
+     limbs' MiMC digest and verifier.sol has one ecMulAdd line per public
+     input;
+ 10. proving over several ranks (zkm_tpu_torch/parallel/: processes
+     spawned by parallel.launch, collectives over gloo, every rank on
+     cuda:0 because NCCL refuses two ranks on one card, as two ranks
+     calling make_mesh with its default backend show first; with two
+     cards also 10b over NCCL, with four also 10a, one card per rank),
+     the cached device memory released first: (a) the three sharded steps of parallel/sharding.py at
+     (dp, tp) = (2, 2) on 4 ranks: commits (rate 2, cap 4) of two
+     Cpu-shaped (260, 2^16) and two Memory-shaped (13, 2^19) traces and
+     two 2^16-row Logic traces, the Logic quotient and its folds at
+     arity_bits 2 and 4, each rank's blocks bit-equal (sha256) to the
+     same steps on one card; (b) phase 6's memalloc segment through
+     host.prove_segment(mesh=) at tp = 2: both ranks' proofs must have
+     phase 6's flattened sha256, and the proof verifies; (c) 8b's fib(40)
+     segments through host.prove_segments at (dp, tp) = (2, 1), one
+     segment a dp group: each rank's gathered receipts have the record's
+     inner digests and chain.  Per rank: per-step ms, K1/K2 launches,
+     peak memory and the bytes and ms of its collectives.
 The line before the last is {"kernels": [...]}, with the launches of
-phases 8b and 9 added up (9a's from what its commands print); the last
-line is {"ok": true, "device": {...}}.
+phases 8b, 9 and 10 added up (9a's from what its commands print, 10's
+from every rank); the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -152,13 +169,15 @@ class LaunchTimer:
     step's peak device memory (the peak statistics are reset as each step
     starts, so a caller reads the run's peak as the largest of them)."""
 
-    def __init__(self, dev, step_peaks: bool = False):
+    def __init__(self, dev, step_peaks: bool = False, comm=None):
         from zkm_tpu_torch.utils.timing import StepTimer
         self.timer = StepTimer(dev)
         self.seconds = self.timer.seconds
         self.launches = {}
         self.step_peaks = step_peaks
         self.peak_gib = {}
+        self.comm = comm            # a parallel.comm.Comm: its calls per step
+        self.moved = {}
 
     @contextlib.contextmanager
     def step(self, name: str):
@@ -166,6 +185,7 @@ class LaunchTimer:
         from zkm_tpu_torch.field import ntt
         from zkm_tpu_torch.hash import poseidon as ps
         k1, k2 = ps.LAUNCHES, ntt.LAUNCHES
+        c0 = self.comm.stats() if self.comm is not None else None
         if self.step_peaks:
             torch.cuda.reset_peak_memory_stats()
         with self.timer.step(name):
@@ -173,6 +193,10 @@ class LaunchTimer:
         got = self.launches.setdefault(name, [0, 0])
         got[0] += ps.LAUNCHES - k1
         got[1] += ntt.LAUNCHES - k2
+        if c0 is not None:
+            moved = self.moved.setdefault(name, [0, 0, 0.0])
+            for i, (a, b) in enumerate(zip(c0, self.comm.stats())):
+                moved[i] += b - a
         if self.step_peaks:
             self.peak_gib[name] = max(self.peak_gib.get(name, 0.0),
                                       torch.cuda.max_memory_allocated() / 2**30)
@@ -182,7 +206,11 @@ class LaunchTimer:
             f"{k} {v * 1e3:.1f} ms (K1 {self.launches[k][0]}, K2 "
             f"{self.launches[k][1]}"
             + (f", peak {self.peak_gib[k]:.2f} GiB" if k in self.peak_gib
-               else "") + ")" for k, v in self.seconds.items())
+               else "")
+            + (f", collectives {self.moved[k][0]}: "
+               f"{self.moved[k][1] / 2**20:.1f} MiB in "
+               f"{self.moved[k][2] * 1e3:.1f} ms" if k in self.moved else "")
+            + ")" for k, v in self.seconds.items())
 
 
 def reset_launches() -> None:
@@ -616,10 +644,10 @@ def phase_segment(dev) -> None:
     prove_hello_heights(ts, pv, dev)
 
 
-def run_memalloc(dev, timer=None):
+def run_memalloc(dev, timer=None, mesh=None):
     """The main path: assemble the memalloc guest, split it ("emulate") and
-    prove each segment with host.prove_segment.  Returns (total steps,
-    segments, receipts)."""
+    prove each segment with host.prove_segment (over `mesh`'s tp group if
+    given).  Returns (total steps, segments, receipts)."""
     from zkm_tpu_torch import host
     from zkm_tpu_torch.emulator.state import State
     from zkm_tpu_torch.emulator.utils import split_prog_into_segs
@@ -630,7 +658,8 @@ def run_memalloc(dev, timer=None):
         st = State(dev)
         st.memory.set_memory_range(0, build_memalloc_guest(*MEMALLOC_ARGS))
         total, segs, _ = split_prog_into_segs(st, seg_size=MEMALLOC_SEG_SIZE)
-    receipts = [host.prove_segment(s, device=dev, timer=timer) for s in segs]
+    receipts = [host.prove_segment(s, device=dev, timer=timer, mesh=mesh)
+                for s in segs]
     host.check_receipt_chain(receipts)
     return total, segs, receipts
 
@@ -650,18 +679,20 @@ def segment_record(seg, heights) -> dict:
         "natural_heights_log2": heights}
 
 
-def phase_main_path(dev, profile: bool) -> dict:
+def phase_main_path(dev, profile: bool) -> list:
     """Phase 6: the memalloc guest end to end, a first and a warm run, each
-    verified and held against zkm_tpu's record.  Returns the first run's
-    launches."""
+    verified and held against zkm_tpu's record.  Returns the flattened
+    sha256 of each segment's proof (the runs must agree), what phase 10b
+    holds its tp = 2 proof against."""
     import torch
     from zkm_tpu_torch import host
     from zkm_tpu_torch.stark.all_stark import make_all_stark
+    from zkm_tpu_torch.stark.proof import flat_sha256, flatten_proof
     from zkm_tpu_torch.witness.trace_set import DATA, field_digests
 
     with open(os.path.join(DATA, "memalloc_segment_reference.json")) as f:
         record = json.load(f)
-    main = None
+    main, proof_sha256 = None, []
     for label in ("first", "warm"):
         timer = LaunchTimer(dev)
         torch.cuda.reset_peak_memory_stats()
@@ -672,6 +703,8 @@ def phase_main_path(dev, profile: bool) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = read_launches()
+        proof_sha256.append([flat_sha256(flatten_proof(r.proof))
+                             for r in receipts])
         peak = torch.cuda.max_memory_allocated() / 2**30
         main = main or (launches, timer.launches)
         heights = [[p.degree_bits for p in r.proof.stark_proofs]
@@ -714,7 +747,11 @@ def phase_main_path(dev, profile: bool) -> dict:
                              f"{per_step}")
     if profile:
         profile_segment(segs[0], dev)
-    return launches
+    log(f"[main] proofs' flattened sha256 {proof_sha256[0]}; the warm "
+        f"run's are the same: {proof_sha256[1] == proof_sha256[0]}")
+    if proof_sha256[1] != proof_sha256[0]:
+        raise AssertionError("the first and the warm proofs differ")
+    return proof_sha256[0]
 
 
 def profile_segment(seg, dev, all_stark=None, label="memalloc") -> None:
@@ -941,12 +978,12 @@ def _roots(a: int, b: int):
                         MemRoots.from_image_id(bytes([b] * 32)), bytes(32))
 
 
-def _expect(what: str, got, want) -> None:
+def _expect(what: str, got, want, whose: str = "zkm_tpu's") -> None:
     shown = str(got)
     shown = shown if len(shown) <= 400 else shown[:400] + "..."
-    log(f"[check] {what}: {shown} == zkm_tpu's: {got == want}")
+    log(f"[check] {what}: {shown} == {whose}: {got == want}")
     if got != want:
-        raise AssertionError(f"{what} differs from zkm_tpu's record: {got} "
+        raise AssertionError(f"{what} differs from {whose}: {got} "
                              f"!= {want}")
 
 
@@ -1408,9 +1445,9 @@ def read_wrapped_json(text: str):
 def phase_wrap(root_doc: dict, tmp: str) -> None:
     """Phase 9c: the STARK -> Groth16 wrap on the host with one seeded key:
     the record's fixed document bit for bit against zkm_tpu's
-    (data/wrap_reference.json), then phase 8b's root wrapped in process and
-    then through `cli wrap` (the key read from ZKM_CIRCUIT_CACHE), both
-    verified, a changed public input rejected."""
+    (data/wrap_reference.json), then phase 8b's root wrapped through `cli
+    wrap` (the key read from ZKM_CIRCUIT_CACHE): it verifies, a changed
+    public input is rejected."""
     from zkm_tpu_torch.snark import contract, groth16 as g16, mimc, wrap
     from zkm_tpu_torch.witness.trace_set import DATA
 
@@ -1435,22 +1472,6 @@ def phase_wrap(root_doc: dict, tmp: str) -> None:
     log(f"[wrap] record's document: prove + verify "
         f"{time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    wrapped = wrap.wrap_stark_bn254(root_doc, pk)
-    t1 = time.perf_counter()
-    publics = wrapped.public_inputs
-    ok = g16.verify(pk.vk, publics, wrapped.proof)
-    t2 = time.perf_counter()
-    changed = [publics[0], publics[1] ^ 1] + publics[2:]
-    rejected = not g16.verify(pk.vk, changed, wrapped.proof)
-    digest = mimc.hash_elements(wrap.claim_limbs(root_doc))
-    log(f"[wrap] 8b root in process: prove (with its own verify) "
-        f"{t1 - t0:.1f} s, verify {t2 - t1:.2f} s; verifies: {ok}; a "
-        f"changed public input is rejected: {rejected}; public_inputs[0] "
-        f"== MiMC(claim limbs): {publics[0] == digest}")
-    if not (ok and rejected and publics[0] == digest):
-        raise AssertionError("the 8b root's wrap failed a check")
-
     doc_path, out_dir = (os.path.join(tmp, "root.json"),
                          os.path.join(tmp, "wrap"))
     with open(doc_path, "w") as f:
@@ -1462,13 +1483,20 @@ def phase_wrap(root_doc: dict, tmp: str) -> None:
         cli_proof, cli_publics = read_wrapped_json(f.read())
     with open(os.path.join(out_dir, "verifier.sol")) as f:
         cli_sol = f.read()
+    t0 = time.perf_counter()
     ok = g16.verify(pk.vk, cli_publics, cli_proof)
-    log(f"[wrap] cli wrap's proof verifies: {ok}; its public inputs == the "
-        f"in-process wrap's: {cli_publics == publics}; verifier.sol == the "
-        f"key's, with {cli_sol.count('ecMulAdd(vkx,')} ecMulAdd lines for "
-        f"{len(publics)} public inputs")
-    if not (ok and cli_publics == publics and cli_sol == sol
-            and cli_sol.count("ecMulAdd(vkx,") == len(publics)):
+    verify_s = time.perf_counter() - t0
+    changed = [cli_publics[0], cli_publics[1] ^ 1] + cli_publics[2:]
+    rejected = not g16.verify(pk.vk, changed, cli_proof)
+    digest = mimc.hash_elements(wrap.claim_limbs(root_doc))
+    log(f"[wrap] cli wrap of 8b's root: its proof verifies: {ok} "
+        f"({verify_s:.2f} s); a changed public input is rejected: "
+        f"{rejected}; public_inputs[0] == MiMC(claim limbs): "
+        f"{cli_publics[0] == digest}; verifier.sol == the key's, with "
+        f"{cli_sol.count('ecMulAdd(vkx,')} ecMulAdd lines for "
+        f"{len(cli_publics)} public inputs")
+    if not (ok and rejected and cli_publics[0] == digest and cli_sol == sol
+            and cli_sol.count("ecMulAdd(vkx,") == len(cli_publics)):
         raise AssertionError("cli wrap's output failed a check")
 
 
@@ -1481,6 +1509,294 @@ def phase_pipeline(dev, tmp: str, root_doc: dict, launches: dict) -> dict:
     phase_wrap(root_doc, tmp)
     log(f"[pipeline] phase 9 in {time.perf_counter() - t0:.1f} s")
     return {k: launches[k] + cli[k] + nat[k] for k in launches}
+
+
+# -- phase 10: multi-rank proving over torch.distributed ---------------------
+
+# One card: the ranks share cuda:0, so NCCL (which refuses two ranks on a
+# card) is out and the collectives run over gloo, staged through the host.
+MULTI_BACKEND = "gloo"
+MULTI_LAUNCH_S = 480
+# 10a: two segments of each of SEGMENT_TABLES's Cpu and Memory shapes,
+# committed at rate 2, cap 4; two 2^16-row Logic traces committed, their
+# quotient (alphas, no boundary selectors) and its folds.
+STEP_SHAPES = (("Cpu", 16, 260), ("Memory", 19, 13))
+STEP_ALPHAS, STEP_BETA, STEP_FOLDS = (3, 5), 7, (2, 4)
+
+
+def _u64_sha(t) -> str:
+    from zkm_tpu_torch.convert import to_u64
+    return hashlib.sha256(to_u64(t).tobytes()).hexdigest()
+
+
+def _step_inputs() -> dict:
+    """10a's whole inputs on the host, made from one seed on every rank
+    alike: {table: (2, C, N) int64}."""
+    import torch
+    from zkm_tpu_torch.convert import from_u64
+    rng = np.random.default_rng(10)
+    out = {name: from_u64(random_field(rng, (2, cols, 1 << log_n)))
+           for name, log_n, cols in STEP_SHAPES}
+    out["Logic"] = torch.stack([from_u64(_logic_statement(rng, 16)[0])
+                                for _ in range(2)])
+    return out
+
+
+def _run_steps(sh, mesh, inputs: dict, timer) -> dict:
+    """10a's steps, sharded over `mesh` or (mesh=None) on one card whole:
+    {step: [sha256 of each output, this rank's block]}."""
+    from zkm_tpu_torch.tables import logic
+    dev = mesh.device if mesh is not None else timer.timer.device
+    out = {}
+    for name in [t for t, _, _ in STEP_SHAPES] + ["Logic"]:
+        with timer.step(f"commit {name}"):
+            if mesh is None:
+                res = sh.commit_step(inputs[name].to(dev), 2, 4)
+            else:
+                res = sh.make_sharded_commit_step(mesh, 2, 4)(
+                    mesh.local(inputs[name], 1))
+        out[f"commit {name}"] = res
+    coeffs = out["commit Logic"][0]
+    with timer.step("quotient Logic"):
+        if mesh is None:
+            q = sh.quotient_step(logic.LogicStark(), coeffs,
+                                 list(STEP_ALPHAS), 16)
+        else:
+            q = sh.make_sharded_quotient_step(
+                mesh, logic.LogicStark(), list(STEP_ALPHAS), 16)(coeffs)
+    out["quotient Logic"] = (q,)
+    for ab in STEP_FOLDS:
+        with timer.step(f"fold {ab}"):
+            if mesh is None:
+                f = sh.fri_fold_step(q[:, 0, :], STEP_BETA, ab)
+            else:
+                f = sh.make_sharded_fri_fold(mesh, STEP_BETA, ab)(q[:, 0, :])
+        out[f"fold {ab}"] = (f,)
+    return out
+
+
+def _rank_report(mesh, timer, t0: float) -> dict:
+    import torch
+    torch.cuda.synchronize()
+    return {"coords": (mesh.dp_index, mesh.tp_index),
+            "wall": time.perf_counter() - t0, "report": timer.report(),
+            "launches": read_launches(),
+            "peak_gib": max(timer.peak_gib.values()),
+            "comm": mesh.tp_comm.stats() if mesh.tp_comm.size > 1
+            else mesh.dp_comm.stats()}
+
+
+def _rank_steps(backend) -> dict:
+    """A rank of 10a: the three sharded steps at (dp, tp) = (2, 2)."""
+    from zkm_tpu_torch.parallel import sharding as sh
+    mesh = sh.make_mesh(2, 2, backend=backend)
+    inputs = _step_inputs()
+    timer = LaunchTimer(mesh.device, step_peaks=True, comm=mesh.tp_comm)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = _run_steps(sh, mesh, inputs, timer)
+    out = _rank_report(mesh, timer, t0)
+    out["sha"] = {k: [_u64_sha(x) for x in v] for k, v in res.items()}
+    return out
+
+
+def _rank_memalloc(backend) -> dict:
+    """A rank of 10b: memalloc's 2^16-cycle segment at tp = 2."""
+    from zkm_tpu_torch.parallel import sharding as sh
+    from zkm_tpu_torch.stark.proof import flat_sha256, flatten_proof
+    mesh = sh.make_mesh(1, 2, backend=backend)
+    timer = LaunchTimer(mesh.device, step_peaks=True, comm=mesh.tp_comm)
+    reset_launches()
+    t0 = time.perf_counter()
+    _, _, receipts = run_memalloc(mesh.device, timer, mesh)
+    out = _rank_report(mesh, timer, t0)
+    out["sha256"] = [flat_sha256(flatten_proof(r.proof)) for r in receipts]
+    out["receipts"] = receipts if mesh.rank == 0 else None
+    return out
+
+
+def _rank_fib() -> dict:
+    """A rank of 10c: fib(40)'s two segments at (dp, tp) = (2, 1), one a
+    dp group, the receipts gathered and chained."""
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.parallel import sharding as sh
+    from zkm_tpu_torch.runtime.examples import build_fib_guest
+    from zkm_tpu_torch.stark.all_stark import Table, make_all_stark
+    from zkm_tpu_torch.stark.config import StarkConfig
+    from zkm_tpu_torch.stark.proof import flat_sha256, flatten_proof
+    from zkm_tpu_torch.utils.timing import step
+    mesh = sh.make_mesh(2, 1, backend=MULTI_BACKEND)
+    timer = LaunchTimer(mesh.device, step_peaks=True, comm=mesh.dp_comm)
+    reset_launches()
+    t0 = time.perf_counter()
+    with step(timer, "emulate"):
+        _, segs = _split(build_fib_guest(FIB_N), (), FIB_SEG_SIZE,
+                         mesh.device)
+    receipts = host.prove_segments(
+        segs, StarkConfig.test_config(),
+        make_all_stark((Table.Cpu, Table.Logic, Table.Memory)),
+        timer=timer, mesh=mesh)
+    out = _rank_report(mesh, timer, t0)
+    out["sha256"] = [flat_sha256(flatten_proof(r.proof)) for r in receipts]
+    out["image_ids"] = [(r.pre_image_id.hex(), r.image_id.hex())
+                        for r in receipts]
+    return out
+
+
+def _cards(world: int) -> str:
+    """How `world` ranks lie on the cards (make_mesh: rank modulo cards)."""
+    import torch
+    n = torch.cuda.device_count()
+    if n == 1:
+        return "ranks sharing cuda:0"
+    if n >= world:
+        return "one card per rank"
+    return f"{world} ranks on {n} cards"
+
+
+def _rank_default_mesh() -> None:
+    """A rank that asks make_mesh for its default backend (NCCL on cards)."""
+    from zkm_tpu_torch.parallel import sharding as sh
+    sh.make_mesh(1, 2)
+
+
+def _launch(label: str, fn, world: int, args=(), backend=MULTI_BACKEND,
+            layout: str = ""):
+    """fn on `world` ranks of a `backend` group (parallel.launch), its
+    ranks' reports logged; the parent's cached device memory is released
+    first."""
+    import torch
+    from zkm_tpu_torch.parallel.launch import launch
+    torch.cuda.empty_cache()
+    log(f"[multi] {label}: {world} ranks, backend={backend}, {layout}")
+    t0 = time.perf_counter()
+    out = launch(fn, world, args, timeout=MULTI_LAUNCH_S, backend=backend)
+    wall = time.perf_counter() - t0
+    for r, o in enumerate(out):
+        log(f"[multi] {label} rank {r} (dp, tp) = {o['coords']}: "
+            f"{o['wall']:.3f} s; {o['report']}; launches {o['launches']}; "
+            f"peak {o['peak_gib']:.2f} GiB; collectives {o['comm'][0]}: "
+            f"{o['comm'][1] / 2**20:.1f} MiB in {o['comm'][2]:.3f} s")
+        if not all(o["launches"].values()):
+            raise AssertionError(f"{label} rank {r} launched no kernel of "
+                                 f"{o['launches']}")
+    log(f"[multi] {label}: launch {wall:.1f} s (the ranks' process start, "
+        f"imports and card context included)")
+    return out
+
+
+def phase_multi_steps(dev, backend=MULTI_BACKEND) -> list:
+    """10a: the three sharded steps at (dp, tp) = (2, 2) against the same
+    steps on one card, each rank's blocks by sha256."""
+    import torch
+    from zkm_tpu_torch.parallel import sharding as sh
+    inputs = _step_inputs()
+    timer = LaunchTimer(dev, step_peaks=True)
+    t0 = time.perf_counter()
+    whole = _run_steps(sh, None, inputs, timer)
+    log(f"[multi] 10a one card, whole: {time.perf_counter() - t0:.3f} s; "
+        f"{timer.report()}")
+    blocks = {}
+    for d in range(2):
+        for t in range(2):
+            m = sh.Mesh(dp=2, tp=2, dp_index=d, tp_index=t, device=dev,
+                        tp_comm=None, dp_comm=None)
+            # coefficients: column shards; digests, quotient, folds: blocks
+            # of rows or points; caps: whole
+            want = {}
+            for k, v in whole.items():
+                if k.startswith("commit"):
+                    want[k] = [_u64_sha(m.local(v[0], 1)),
+                               _u64_sha(m.local(v[1], 1, even=True)),
+                               _u64_sha(v[2][m.dp_block(2)])]
+                else:
+                    want[k] = [_u64_sha(m.local(v[0], v[0].dim() - 1,
+                                                even=True))]
+            blocks[(d, t)] = want
+    del whole, inputs
+    out = _launch("10a steps", _rank_steps, 4, (backend,), backend,
+                  f"{_cards(4)}, (dp, tp) = (2, 2)")
+    for o in out:
+        same = o["sha"] == blocks[o["coords"]]
+        log(f"[check] 10a rank {o['coords']}: its blocks of "
+            f"{', '.join(o['sha'])} (sha256) == one card's: {same}")
+        if not same:
+            raise AssertionError(f"10a rank {o['coords']} differs from one "
+                                 f"card: {o['sha']} != {blocks[o['coords']]}")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_multi_nccl(dev, memalloc_sha256: list) -> list:
+    """NCCL with one card per rank: 10a with four cards, 10b with two,
+    held against one card as phase 10's gloo runs are."""
+    import torch
+    n = torch.cuda.device_count()
+    runs = []
+    if n >= 4:
+        runs += phase_multi_steps(dev, "nccl")
+    if n >= 2:
+        got = _launch("10b memalloc, NCCL", _rank_memalloc, 2, ("nccl",),
+                      "nccl", f"{_cards(2)}, (dp, tp) = (1, 2)")
+        _expect("10b NCCL tp = 2 proofs", [o["sha256"] for o in got],
+                [memalloc_sha256] * 2, "phase 6's one-rank proofs")
+        runs += got
+    return runs
+
+
+def phase_multi(dev, memalloc_sha256: list) -> dict:
+    """Phase 10: proving over several ranks on the card (gloo, ranks
+    sharing cuda:0; with a second card also NCCL, one card per rank).
+    Returns the launches of every rank added up."""
+    import torch
+    from zkm_tpu_torch import host
+    from zkm_tpu_torch.parallel.launch import LaunchError, launch
+    from zkm_tpu_torch.witness.trace_set import DATA
+    t_start = time.perf_counter()
+    if torch.cuda.device_count() == 1:
+        try:
+            launch(_rank_default_mesh, 2, timeout=120)
+        except LaunchError as e:
+            if "NCCL needs one card per rank" not in str(e):
+                raise
+            log("[multi] make_mesh(1, 2) with backend=None (NCCL) on two "
+                "ranks sharing one card raises: "
+                f"{str(e).strip().splitlines()[-1]}")
+        else:
+            raise AssertionError("NCCL was let put two ranks on one card")
+    runs = phase_multi_steps(dev)
+
+    got = _launch("10b memalloc", _rank_memalloc, 2, (MULTI_BACKEND,),
+                  layout=f"{_cards(2)}, (dp, tp) = (1, 2)")
+    _expect("10b memalloc's tp = 2 proofs (every rank; flattened sha256)",
+            [o["sha256"] for o in got], [memalloc_sha256] * 2,
+            "phase 6's one-rank proofs")
+    t0 = time.perf_counter()
+    for r in got[0]["receipts"]:
+        host.verify_segment_receipt(r)
+    log(f"[multi] 10b tp = 2 proof verified by the port's verifier in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs += got
+    if torch.cuda.device_count() >= 2:
+        runs += phase_multi_nccl(dev, memalloc_sha256)
+    else:
+        log("[multi] one card: the NCCL run (one card per rank) waits for "
+            "a machine with two")
+
+    with open(os.path.join(DATA, "recursion_fib_reference.json")) as f:
+        record = json.load(f)
+    got = _launch("10c fib", _rank_fib, 2,
+                  layout=f"{_cards(2)}, (dp, tp) = (2, 1)")
+    want = [(s["pre_image_id"], s["image_id"]) for s in record["segments"]]
+    _expect("10c fib(40) segments' inner proofs at dp = 2 (every rank: "
+            "both, gathered over dp)", [o["sha256"] for o in got],
+            [record["inner_sha256_flat"]] * 2)
+    _expect("10c receipts chain (pre/post image ids)",
+            [o["image_ids"] for o in got], [want] * 2)
+    runs += got
+    log(f"[multi] phase 10 in {time.perf_counter() - t_start:.1f} s")
+    return {k: sum(o["launches"][k] for o in runs)
+            for k in ("poseidon_permute", "goldilocks_ntt")}
 
 
 def main() -> int:
@@ -1504,12 +1820,14 @@ def main() -> int:
     phase_commits(rng, dev)
     phase_proof(rng, dev)
     phase_segment(dev)
-    phase_main_path(dev, args.profile)
+    memalloc_sha256 = phase_main_path(dev, args.profile)
     check_full_segment(dev)
     phase_hash_segment(dev, args.profile)
     launches, root_doc = phase_recursion_all(dev, args.profile)
     with tempfile.TemporaryDirectory(dir=HERE, prefix=".chip_smoke_") as tmp:
         launches = phase_pipeline(dev, tmp, root_doc, launches)
+    multi = phase_multi(dev, memalloc_sha256)
+    launches = {k: launches[k] + multi[k] for k in launches}
     log(f"[smoke] all phases in {time.perf_counter() - t_start:.1f} s")
     for name, k in kernels.items():
         k["launches"] = launches[name]

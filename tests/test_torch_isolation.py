@@ -36,6 +36,7 @@ def test_port_imports_no_jax_and_no_reference_module():
                  "recursion.cache", "snark", "snark.bn254", "snark.r1cs",
                  "snark.mimc", "snark.groth16", "snark.wrap",
                  "snark.contract", "cli", "emulator.native",
-                 "runtime.build"):
+                 "runtime.build", "parallel", "parallel.comm",
+                 "parallel.sharding", "parallel.launch"):
         assert "zkm_tpu_torch." + name in result["imported"]
     assert result["bad"] == []

@@ -131,19 +131,21 @@ def _transform_cuda(x: torch.Tensor, log_n: int, inverse: bool,
         scale = scale.contiguous()
     tw = twiddles(log_n, inverse, x.device)
     stream = native.stream_ptr(x.device)
-    for first, stages, log_cols in plan(log_n):
-        if first == 1:
-            err = lib.zkm_ntt_first_pass(
-                x.data_ptr(), out.data_ptr(),
-                scale.data_ptr() if scale is not None else None,
-                factor % gl.P, tw.data_ptr(), rows, n_in, log_n, stages,
-                log_cols, stream)
-        else:
-            err = lib.zkm_ntt_pass(
-                out.data_ptr(), tw.data_ptr(), rows, log_n, first, stages,
-                log_cols, stream)
-        native.check(lib, err, f"ntt pass from stage {first}")
-        LAUNCHES += 1
+    # the launches go to the current device: make it the tensor's
+    with torch.cuda.device(x.device):
+        for first, stages, log_cols in plan(log_n):
+            if first == 1:
+                err = lib.zkm_ntt_first_pass(
+                    x.data_ptr(), out.data_ptr(),
+                    scale.data_ptr() if scale is not None else None,
+                    factor % gl.P, tw.data_ptr(), rows, n_in, log_n, stages,
+                    log_cols, stream)
+            else:
+                err = lib.zkm_ntt_pass(
+                    out.data_ptr(), tw.data_ptr(), rows, log_n, first,
+                    stages, log_cols, stream)
+            native.check(lib, err, f"ntt pass from stage {first}")
+            LAUNCHES += 1
     return out
 
 

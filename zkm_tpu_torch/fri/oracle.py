@@ -8,6 +8,10 @@ opening batch (point z, polynomial set S)
     quotient  = (comp(x) - comp(z)) / (x - z)  (batched field inverse)
 and batches accumulate as final = final * alpha^{|S|} + quotient, the
 reference's ReducingFactor shift discipline.
+
+Over a tp group (`comm`) the openings are evaluated on each rank's
+column shards and gathered (they are small), and the quotient is
+pointwise over the rank's block of the bit-reversed LDE rows.
 """
 
 from __future__ import annotations
@@ -93,14 +97,18 @@ def eval_columns(coeffs: torch.Tensor, z: Ext) -> gl2.Gf2:
     return gl2.sum_axis(gl2.mul_base(zp, coeffs), -1)
 
 
-def eval_columns_at_many(pairs, extra=()) -> list:
+def eval_columns_at_many(pairs, extra=(), comm=None, counts=None) -> list:
     """[(coeffs, z)] -> [(C, 2) u64 openings], then `extra` device values
-    as u64 arrays, appended in order."""
-    outs = []
-    for coeffs, z in pairs:
-        c0, c1 = eval_columns(coeffs, z)
-        outs.append(np.stack([to_u64(c0), to_u64(c1)], axis=-1))
-    return outs + [to_u64(e) for e in extra]
+    as u64 arrays, appended in order.  Over a tp group `comm`, coeffs and
+    extra are this rank's column shards, counts[k] every rank's column
+    count for pairs + extra in order; the values are gathered in one
+    all_gather."""
+    vals = [torch.stack(eval_columns(coeffs, z), -1) for coeffs, z in pairs]
+    vals += [torch.stack([e, torch.zeros_like(e)], -1) for e in extra]
+    if comm is not None:
+        vals = comm.gather_cols(list(zip(vals, counts)))
+    outs = [to_u64(v) for v in vals]
+    return outs[:len(pairs)] + [o[:, 0].copy() for o in outs[len(pairs):]]
 
 
 def _batch_quotient(ranges, oracle_leaves, alpha_pows: gl2.Gf2, cz: Ext,
@@ -125,9 +133,10 @@ def open_and_prove(batches: Sequence[OpeningBatch],
                    openings_per_batch: Sequence[np.ndarray],
                    oracles: Sequence[PolynomialBatch],
                    challenger: Challenger,
-                   config: FriConfig, timer=None) -> FriProof:
+                   config: FriConfig, timer=None, comm=None) -> FriProof:
     """openings_per_batch[b]: (num_polys, 2) u64 values p_i(z_b), already
-    observed by the caller."""
+    observed by the caller.  Over a tp group `comm`, the oracles' leaves
+    are this rank's blocks."""
     degree_bits = oracles[0].degree_bits
     log_m = degree_bits + config.rate_bits
     device = oracles[0].leaves.device
@@ -136,6 +145,9 @@ def open_and_prove(batches: Sequence[OpeningBatch],
 
     with step(timer, "fri"):
         xs = lde_points_bitrev(log_m, gl.GENERATOR, device)
+        if comm is not None:
+            b = oracles[0].leaves.shape[0]
+            xs = xs[comm.rank * b:(comm.rank + 1) * b]
         oracle_leaves = tuple(o.leaves for o in oracles)
         final = None
         for batch, opens in zip(batches, openings_per_batch):
@@ -156,7 +168,8 @@ def open_and_prove(batches: Sequence[OpeningBatch],
                 shift = gl2.host_pow(alpha, batch.num_polys)
                 final = gl2.add(gl2.mul(final, shift), quot)
 
-    return fri_prove(oracles, final, degree_bits, challenger, config, timer)
+    return fri_prove(oracles, final, degree_bits, challenger, config, timer,
+                     comm)
 
 
 def make_combine_initial(batches: Sequence[OpeningBatch],

@@ -8,6 +8,14 @@ Counterpart of `zkm_tpu/fri/prover.py` (plonky2's `fri_proof`: fold arity
     c1 x arity], hashed into a Merkle tree;
   * the proof-of-work grind tries 2^16 candidates per batch, one Poseidon
     permutation each, and takes the smallest that succeeds.
+
+Over a tp group (`comm`) each rank holds a contiguous block of the
+bit-reversed values.  An arity-sized coset is contiguous there, so the
+leaves, the layer's subtree (commit/merkle.py) and the fold stay local;
+a layer with fewer than tp * arity values is gathered and the rest runs
+on every rank alike, as do the final polynomial and the grind (each
+rank's challenger replica finds the one-card witness itself).  Query
+rows and paths come from the ranks that hold them.
 """
 
 from __future__ import annotations
@@ -58,11 +66,15 @@ def _fold_step(values: gl2.Gf2, beta: Tuple[int, int],
 
 
 def fold_layer(values: gl2.Gf2, beta: Tuple[int, int], arity_bits: int,
-               log_m: int, shift: int) -> Tuple[gl2.Gf2, int, int]:
+               log_m: int, shift: int, comm=None) -> Tuple[gl2.Gf2, int, int]:
     """Arity-2^k fold = k radix-2 folds with beta^(2^t).  Returns (folded
-    values, new log size, new shift)."""
+    values, new log size, new shift).  Over a tp group `comm` the values
+    are this rank's block."""
     for _ in range(arity_bits):
         inv_xs = _even_point_invs(log_m, shift, values[0].device)
+        if comm is not None:
+            h = values[0].shape[0] // 2
+            inv_xs = inv_xs[comm.rank * h:(comm.rank + 1) * h]
         values = _fold_step(values, beta, inv_xs)
         beta = gl2.host_mul(beta, beta)
         log_m -= 1
@@ -76,9 +88,10 @@ def _chunk_leaves(values: gl2.Gf2, arity: int) -> torch.Tensor:
                       values[1].reshape(-1, arity)], dim=1)
 
 
-def _chunk_and_tree(values: gl2.Gf2, arity: int, cap_height: int):
+def _chunk_and_tree(values: gl2.Gf2, arity: int, cap_height: int,
+                    comm=None):
     leaves = _chunk_leaves(values, arity)
-    return leaves, build_merkle_tree(leaves, cap_height)
+    return leaves, build_merkle_tree(leaves, cap_height, comm)
 
 
 # ---------------------------------------------------------------------------
@@ -134,11 +147,11 @@ def fri_prove(oracles: Sequence[PolynomialBatch],
               initial_values: gl2.Gf2,
               degree_bits: int,
               challenger: Challenger,
-              config: FriConfig, timer=None) -> FriProof:
+              config: FriConfig, timer=None, comm=None) -> FriProof:
     """Commit-fold-grind-query.  `initial_values`: the alpha-combined
     opening quotient over the bit-reversed LDE domain of size
-    2^(degree_bits + rate_bits); the caller has observed the oracle caps
-    and drawn alpha."""
+    2^(degree_bits + rate_bits) (over a tp group `comm`, this rank's
+    block); the caller has observed the oracle caps and drawn alpha."""
     log_m = degree_bits + config.rate_bits
     shift = gl.GENERATOR
     arities = config.reduction_arity_bits(degree_bits)
@@ -147,17 +160,27 @@ def fri_prove(oracles: Sequence[PolynomialBatch],
     values = initial_values
     trees = []
     caps = []
+    layer_comm = comm       # None once the layers are gathered
+
+    def gathered(v):
+        return (comm.gather_points(v[0]), comm.gather_points(v[1]))
+
     with step(timer, "fri"):
         for arity_bits in arities:
+            if layer_comm is not None and \
+                    values[0].shape[0] < 1 << arity_bits:
+                values, layer_comm = gathered(values), None
             leaves, tree = _chunk_and_tree(values, 1 << arity_bits,
-                                           config.cap_height)
+                                           config.cap_height, layer_comm)
             trees.append((tree, leaves))
             cap = to_u64(tree.cap)
             caps.append(cap)
             challenger.observe_cap(cap)
             beta = challenger.get_extension_challenge()
             values, log_m, shift = fold_layer(values, beta, arity_bits,
-                                              log_m, shift)
+                                              log_m, shift, layer_comm)
+        if layer_comm is not None:
+            values = gathered(values)
 
         # Final polynomial: undo the bit reversal, inverse coset NTT, trim
         # to the true degree (higher coefficients are identically zero).
@@ -205,9 +228,8 @@ def extract_query_rounds(oracles, trees, arities, indices):
     step_data = []
     for (tree, leaves), arity_bits in zip(trees, arities):
         idx = idx >> arity_bits
-        rows = to_u64(leaves.index_select(
-            0, torch.from_numpy(idx).to(leaves.device)))
-        step_data.append((1 << arity_bits, rows, tree.open_batch(idx)))
+        rows, paths = tree.open(idx, leaves)
+        step_data.append((1 << arity_bits, rows, paths))
 
     query_rounds = []
     for q in range(nq):

@@ -102,9 +102,11 @@ def _permute_cuda(state: torch.Tensor) -> torch.Tensor:
             _initialized_devices.add(dev)
     flat = state.reshape(-1, SPONGE_WIDTH).contiguous()
     out = torch.empty_like(flat)
-    native.check(lib, lib.zkm_poseidon_permute(
-        flat.data_ptr(), out.data_ptr(), flat.shape[0],
-        native.stream_ptr(state.device)), "poseidon permute")
+    # the launch goes to the current device: make it the tensor's
+    with torch.cuda.device(state.device):
+        native.check(lib, lib.zkm_poseidon_permute(
+            flat.data_ptr(), out.data_ptr(), flat.shape[0],
+            native.stream_ptr(state.device)), "poseidon permute")
     LAUNCHES += 1
     return out.view(state.shape)
 

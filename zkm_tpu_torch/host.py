@@ -12,6 +12,11 @@ A frozen witness goes in through `prove_trace_set`.  Every entry point
 runs on the card unless it is given device="cpu", and raises without one.
 A `timer` (utils.timing.StepTimer) collects per-step seconds: "emulate",
 "witness", "trace_build" and the prover's steps.
+
+With a `mesh` (parallel/sharding.py) every rank runs emulation, witness
+generation and trace building itself (deterministic host work) and the
+proof is spread over its tp group (stark/prover.py); `prove_segments`
+gives each dp group its share of the segments and gathers the receipts.
 """
 
 from __future__ import annotations
@@ -137,35 +142,44 @@ def segment_traces(seg: Segment, all_stark: AllStark, block_path: str = "",
         return trace_set_traces(ts, all_stark, height_floors, dev)
 
 
+def _device(device, mesh):
+    return mesh.device if mesh is not None else resolve_device(device)
+
+
 def prove_trace_set(trace_set: TraceSet, pv: PublicValues,
                     config: Optional[StarkConfig] = None,
                     all_stark: Optional[AllStark] = None,
                     height_floors: Optional[Dict[Table, int]] = None,
-                    device=None, timer=None, debug: bool = False) -> AllProof:
+                    device=None, timer=None, debug: bool = False,
+                    mesh=None) -> AllProof:
     """Build the subset's traces from a witness and prove them (default:
     SPONGE_SUBSET under standard_fast_config).  With `debug` each table's
-    constraints are checked on its rows first (the proof is the same)."""
-    dev = resolve_device(device)
+    constraints are checked on its rows first (the proof is the same).
+    With a tp `mesh` the whole traces stay on the host and each rank
+    moves its blocks to its device."""
+    dev = _device(device, mesh)
     config = config or StarkConfig.standard_fast_config()
     all_stark = all_stark or make_all_stark()
     with step(timer, "trace_build"):
         rows = trace_set_traces(trace_set, all_stark, height_floors, dev)
-    return prove_with_traces(all_stark.starks, config,
-                             traces_from_rows(rows, dev), all_stark.ctls, pv,
-                             device=dev, timer=timer, debug=debug)
+    traces = traces_from_rows(rows, "cpu" if mesh is not None else dev)
+    return prove_with_traces(all_stark.starks, config, traces,
+                             all_stark.ctls, pv, device=dev, timer=timer,
+                             debug=debug, mesh=mesh)
 
 
 def prove_segment(seg: Segment, config: Optional[StarkConfig] = None,
                   all_stark: Optional[AllStark] = None, block_path: str = "",
                   height_floors: Optional[Dict[Table, int]] = None,
                   device=None, timer=None, debug: bool = False,
-                  assumptions=(), assumption_usage: Optional[list] = None
-                  ) -> SegmentReceipt:
+                  assumptions=(), assumption_usage: Optional[list] = None,
+                  mesh=None) -> SegmentReceipt:
     """Re-execute a segment, generate its witness and prove the subset.
     SYS_VERIFY resolves its claims against `assumptions`; the
     (Assumption, AssumptionReceipt) pairs it used are appended to
-    `assumption_usage`."""
-    dev = resolve_device(device)
+    `assumption_usage`.  With a `mesh`, every rank of its tp group calls
+    this with the same segment and gets the same receipt."""
+    dev = _device(device, mesh)
     config = config or StarkConfig.standard_fast_config()
     all_stark = all_stark or make_all_stark()
     ts = segment_witness(seg, all_stark, block_path, dev, timer, assumptions)
@@ -173,7 +187,7 @@ def prove_segment(seg: Segment, config: Optional[StarkConfig] = None,
         assumption_usage.extend(ts.assumptions_used)
     pv = public_values_for_segment(seg)
     proof = prove_trace_set(ts, pv, config, all_stark, height_floors, dev,
-                            timer, debug)
+                            timer, debug, mesh)
     return SegmentReceipt(proof=proof, pre_image_id=seg.pre_image_id,
                           image_id=seg.image_id, userdata=pv.userdata)
 
@@ -202,24 +216,44 @@ def check_receipt_chain(receipts: List[SegmentReceipt]) -> None:
             raise ValueError("userdata mismatch across segments")
 
 
+def prove_segments(segments: List[Segment],
+                   config: Optional[StarkConfig] = None,
+                   all_stark: Optional[AllStark] = None, device=None,
+                   timer=None, mesh=None) -> List[SegmentReceipt]:
+    """Prove every segment and check that the receipts chain.  With a
+    (dp, tp) `mesh`, dp group d proves segments d, d + dp, ... on its tp
+    group, and the receipts are gathered over dp so that every rank
+    returns all of them, in order."""
+    if mesh is None or mesh.dp == 1:
+        receipts = [prove_segment(s, config, all_stark, device=device,
+                                  timer=timer, mesh=mesh) for s in segments]
+    else:
+        mine = [prove_segment(s, config, all_stark, timer=timer, mesh=mesh)
+                for s in segments[mesh.dp_index::mesh.dp]]
+        got = mesh.dp_comm.all_gather_object(mine)
+        receipts = [got[k % mesh.dp][k // mesh.dp]
+                    for k in range(len(segments))]
+    check_receipt_chain(receipts)
+    return receipts
+
+
 def prove_elf(elf_path: str, args: List[str] = (),
               inputs: List[bytes] = (), seg_size: int = 65536,
               config: Optional[StarkConfig] = None,
               max_steps: Optional[int] = None, device=None,
-              timer=None) -> List[SegmentReceipt]:
+              timer=None, mesh=None) -> List[SegmentReceipt]:
     """Full pipeline: load the ELF, execute and split it ("emulate"), prove
-    every segment, check the receipts chain."""
-    dev = resolve_device(device)
+    every segment, check the receipts chain.  With a `mesh`, every rank
+    emulates and `prove_segments` shares out the segments."""
+    dev = _device(device, mesh)
     with step(timer, "emulate"):
         state = load_elf_with_patch(elf_path, list(args), dev)
         for raw in inputs:
             state.add_input_stream_bytes(raw)
         _, segments, _ = split_prog_into_segs(state, None, "", seg_size,
                                               max_steps=max_steps)
-    receipts = [prove_segment(s, config, device=dev, timer=timer)
-                for s in segments]
-    check_receipt_chain(receipts)
-    return receipts
+    return prove_segments(segments, config, device=dev, timer=timer,
+                          mesh=mesh)
 
 
 def prove_segments_with_assumptions(

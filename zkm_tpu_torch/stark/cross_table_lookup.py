@@ -10,6 +10,12 @@ looked ctl_zs_first.
 The trace side runs on int64 tensors over whole traces at once (masked
 batched inverse, modular suffix sums); the constraint side (`eval_*`) is
 generic algebra, copied from the reference.
+
+Over a tp group (`comm`), each rank holds a contiguous block of every
+trace's rows plus the next row after it (the halo that next-row columns
+read).  Helper columns are row-local; each Z is this block's suffix sum
+plus the totals of the blocks after it, all blocks' totals gathered at
+once.
 """
 
 from __future__ import annotations
@@ -145,14 +151,29 @@ def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
     return gl.cumsum(x.flip(-1), -1).flip(-1)
 
 
+def block_offsets(totals: torch.Tensor, comm, after: bool) -> torch.Tensor:
+    """(K,) this rank's block totals -> (K,) the sums of the totals of
+    the blocks after it (or before it) in the tp group, mod p."""
+    got = comm.all_gather(totals)                          # (size, K)
+    part = got[comm.rank + 1:] if after else got[:comm.rank]
+    if part.shape[0] == 0:
+        return torch.zeros_like(totals)
+    return gl.sum_axis(part, 0)
+
+
 def partial_sums(trace: torch.Tensor, columns_filters, challenge,
-                 constraint_degree: int) -> List[torch.Tensor]:
+                 constraint_degree: int,
+                 rows: Optional[int] = None) -> List[torch.Tensor]:
     """Helper columns plus the reverse-cumulative-sum Z column.
 
     Z(row i) = sum over rows j >= i of sum_k h_k(j); Z(row 0) = grand total.
-    If there is a single column-set, only [Z] is returned (no helper)."""
+    If there is a single column-set, only [Z] is returned (no helper).
+    With `rows`, trace is a block of that many rows plus its halo row,
+    and Z is the block's own suffix sum."""
     helpers = get_helper_cols(trace, columns_filters, challenge,
                               constraint_degree)
+    if rows is not None:
+        helpers = [h[:rows] for h in helpers]
     total = helpers[0]
     for h in helpers[1:]:
         total = gl.add(total, h)
@@ -165,7 +186,17 @@ def partial_sums(trace: torch.Tensor, columns_filters, challenge,
 def cross_table_lookup_data(trace_per_table: List[torch.Tensor],
                             ctls: Sequence[CrossTableLookup],
                             ctl_challenges: GrandProductChallengeSet,
-                            constraint_degree: int) -> List[CtlData]:
+                            constraint_degree: int,
+                            comm=None) -> List[CtlData]:
+    """Over a tp group `comm`, trace_per_table[t] is this rank's block of
+    rows plus its halo row, and the columns returned are its block."""
+    sharded = comm is not None and comm.size > 1
+
+    def sums(table, cf, challenge):
+        trace = trace_per_table[table]
+        return partial_sums(trace, cf, challenge, constraint_degree,
+                            trace.shape[-1] - 1 if sharded else None)
+
     num_tables = len(trace_per_table)
     data = [CtlData() for _ in range(num_tables)]
     for ctl in ctls:
@@ -175,21 +206,24 @@ def cross_table_lookup_data(trace_per_table: List[torch.Tensor],
             for t in ctl.looking_tables:
                 grouped.setdefault(t.table, []).append(t)
             for table, group in grouped.items():
-                cf = [(t.columns, t.filter) for t in group]
-                cols = partial_sums(
-                    trace_per_table[table], cf, challenge, constraint_degree)
+                cols = sums(table, [(t.columns, t.filter) for t in group],
+                            challenge)
                 data[table].zs_columns.append(CtlZData(
                     helper_columns=cols[:-1], z=cols[-1],
                     challenge=challenge,
                     columns=[t.columns for t in group],
                     filters=[t.filter for t in group]))
             lt = ctl.looked_table
-            zcols = partial_sums(
-                trace_per_table[lt.table], [(lt.columns, lt.filter)],
-                challenge, constraint_degree)
+            zcols = sums(lt.table, [(lt.columns, lt.filter)], challenge)
             data[lt.table].zs_columns.append(CtlZData(
                 helper_columns=[], z=zcols[0], challenge=challenge,
                 columns=[lt.columns], filters=[lt.filter]))
+    zs = [z for d in data for z in d.zs_columns]
+    if sharded and zs:
+        off = block_offsets(torch.stack([z.z[0] for z in zs]), comm,
+                            after=True)
+        for k, z in enumerate(zs):
+            z.z = gl.add(z.z, off[k])
     return data
 
 

@@ -15,8 +15,8 @@ import torch
 
 from ..field import goldilocks as gl
 from .columns import Column, Filter
-from .cross_table_lookup import (GrandProductChallenge, get_helper_cols,
-                                 eval_helper_columns)
+from .cross_table_lookup import (GrandProductChallenge, block_offsets,
+                                 eval_helper_columns, get_helper_cols)
 
 
 @dataclass(frozen=True)
@@ -38,22 +38,33 @@ def _prefix_sum_exclusive(x: torch.Tensor) -> torch.Tensor:
 
 
 def lookup_helper_columns(lookup: Lookup, trace: torch.Tensor, challenge: int,
-                          constraint_degree: int) -> List[torch.Tensor]:
+                          constraint_degree: int,
+                          comm=None) -> List[torch.Tensor]:
+    """Over a tp group `comm`, trace is this rank's block of rows plus
+    its halo row; Z is the block's exclusive prefix sum plus the totals
+    of the blocks before it."""
     assert constraint_degree == 3
+    sharded = comm is not None and comm.size > 1
+    rows = trace.shape[-1] - 1 if sharded else trace.shape[-1]
     ch = GrandProductChallenge(beta=1, gamma=challenge)
     columns_filters = [((c,), f) for c, f in
                        zip(lookup.columns, lookup.filter_columns)]
-    helpers = get_helper_cols(trace, columns_filters, ch, constraint_degree)
+    helpers = [h[:rows] for h in get_helper_cols(
+        trace, columns_filters, ch, constraint_degree)]
 
-    table = lookup.table_column.eval_all_rows(trace)
+    table = lookup.table_column.eval_all_rows(trace)[:rows]
     table_inv = gl.inverse(gl.add(table, challenge))
-    freq = lookup.frequencies_column.eval_all_rows(trace)
+    freq = lookup.frequencies_column.eval_all_rows(trace)[:rows]
 
     total = helpers[0]
     for h in helpers[1:]:
         total = gl.add(total, h)
     x = gl.sub(total, gl.mul(freq, table_inv))
-    return helpers + [_prefix_sum_exclusive(x)]
+    z = _prefix_sum_exclusive(x)
+    if sharded:
+        block_total = gl.add(z[-1:], x[-1:])
+        z = gl.add(z, block_offsets(block_total, comm, after=False))
+    return helpers + [z]
 
 
 def eval_packed_lookups_generic(algebra, lookups, local, nxt, lookup_local,

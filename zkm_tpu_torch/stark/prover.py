@@ -16,6 +16,19 @@ quotient cap -> zeta -> openings -> FRI.
   * with debug=True every table's constraints are first checked on H
     itself (`check_constraints`), which draws nothing from the
     transcript: the proof is the same.
+
+Over a tp mesh (`mesh=`, parallel/sharding.py) the proof is the same
+too.  Every rank gets the whole traces and keeps its blocks: a column
+shard of each table for its commitments (commit/polynomial_batch.py), a
+block of rows plus the next row for the CTL and lookup columns (their
+running sums carry across blocks, stark/cross_table_lookup.py); aux
+columns move to column shards with one all_to_all; the quotient is
+evaluated on a block of the 2n coset points with a two-point halo from
+the next block, then moved to column shards of its chunks; openings are
+gathered, and FRI runs on the blocks of the bit-reversed LDE
+(fri/oracle.py, fri/prover.py).  Every rank observes the same caps and
+openings on its own host challenger, so all ranks draw the same
+challenges and assemble the same AllProof.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ from ..field import goldilocks as gl
 from ..field import ntt
 from ..fri import oracle as fri_oracle
 from ..iop.challenger import Challenger
+from ..parallel.comm import halo_points, split_counts, tp_group
 from ..utils.timing import step
 from .config import StarkConfig
 from .cross_table_lookup import (cross_table_lookup_data,
@@ -98,13 +112,27 @@ def quotient_domain_tables(degree_bits: int, device: torch.device):
 
 def quotient_values(stark, degree_bits: int, trace_coeffs: torch.Tensor,
                     aux_coeffs: torch.Tensor, alphas, num_lookup: int,
-                    ctl_structure, challenges, publics=()) -> List[torch.Tensor]:
+                    ctl_structure, challenges, publics=(),
+                    comm=None, col_counts=None) -> List[torch.Tensor]:
     """The alpha-combined vanishing polynomial / Z_H over the quotient
-    coset (size 2n): one (2n,) tensor per alpha."""
-    full = torch.cat([ntt.lde(trace_coeffs, 1), ntt.lde(aux_coeffs, 1)])
-    full_next = torch.roll(full, -2, dims=-1)
-    z_last, lag_first, lag_last, inv_zh = quotient_domain_tables(
-        degree_bits, trace_coeffs.device)
+    coset (size 2n): one (2n,) tensor per alpha.  Over a tp group `comm`
+    the coefficients are column shards (col_counts: the trace's and the
+    aux columns' counts per rank) and the result is this rank's block of
+    the 2n points."""
+    tables = quotient_domain_tables(degree_bits, trace_coeffs.device)
+    if comm is None:
+        full = torch.cat([ntt.lde(trace_coeffs, 1), ntt.lde(aux_coeffs, 1)])
+        full_next = torch.roll(full, -2, dims=-1)
+    else:
+        m = 2 << degree_bits
+        b = m // comm.size
+        block = comm.cols_to_rows(
+            [(ntt.lde(trace_coeffs, 1), col_counts[0]),
+             (ntt.lde(aux_coeffs, 1), col_counts[1])],
+            halo_points(m, comm.size, 2, trace_coeffs.device))
+        full, full_next = block[:, :b], block[:, 2:]
+        tables = [t[comm.rank * b:(comm.rank + 1) * b] for t in tables]
+    z_last, lag_first, lag_last, inv_zh = tables
     accs = eval_vanishing_scheduled(
         stark, num_lookup, ctl_structure, full, full_next, challenges,
         alphas, (z_last, lag_first, lag_last), publics)
@@ -136,10 +164,18 @@ def check_constraints(stark, trace_values: torch.Tensor,
             f"rows {bad[:10].tolist()}")
 
 
-def quotient_chunks(quotient_values: List[torch.Tensor], n: int) -> torch.Tensor:
+def quotient_chunks(quotient_values: List[torch.Tensor], n: int,
+                    comm=None) -> torch.Tensor:
     """Coset values (2n) -> coefficients -> two degree-n chunks each,
-    challenge-major: (2 * len(quotient_values), n)."""
-    coeffs = ntt.coset_intt(torch.stack(quotient_values))     # (A, 2n)
+    challenge-major: (2 * len(quotient_values), n).  Over a tp group the
+    values are this rank's block of points, and the result is its column
+    shard: the chunks of its `split_counts(A, tp)` alphas."""
+    values = torch.stack(quotient_values)
+    if comm is not None:
+        values = comm.rows_to_cols(values,
+                                   split_counts(len(quotient_values),
+                                                comm.size))
+    coeffs = ntt.coset_intt(values)                         # (A, 2n)
     return coeffs.reshape(-1, n)
 
 
@@ -147,8 +183,12 @@ def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
                        trace_commitment: PolynomialBatch, ctl_data,
                        ctl_challenges, challenger: Challenger,
                        publics=(), timer=None,
-                       debug: bool = False) -> StarkProofWithMetadata:
-    n = trace_values.shape[-1]
+                       debug: bool = False,
+                       mesh=None) -> StarkProofWithMetadata:
+    """Over a tp mesh, trace_values is this rank's block of rows plus
+    its halo row."""
+    comm = trace_commitment.comm
+    n = trace_commitment.degree
     degree_bits = n.bit_length() - 1
     rate_bits = config.fri_config.rate_bits
     cap_height = config.fri_config.cap_height
@@ -163,15 +203,20 @@ def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
                 for ch in ctl_challenges.challenges:
                     aux_polys.extend(lookup_helper_columns(
                         lookup, trace_values, ch.beta,
-                        stark.constraint_degree))
+                        stark.constraint_degree, comm))
         num_lookup_columns = len(aux_polys)
         aux_polys.extend(ctl_data.ctl_helper_polys())
         aux_polys.extend(ctl_data.ctl_z_polys())
         assert aux_polys, "No CTL?"
         aux_values = torch.stack(aux_polys)
     with step(timer, "aux_commit"):
+        aux_counts = None
+        if comm is not None:
+            aux_counts = split_counts(len(aux_polys), comm.size)
+            aux_values = comm.rows_to_cols(aux_values, aux_counts)
         aux_commitment = PolynomialBatch.from_values(
-            aux_values, rate_bits, cap_height, device=device)
+            aux_values, rate_bits, cap_height, device=device, mesh=mesh,
+            col_counts=aux_counts)
         challenger.observe_cap(aux_commitment.cap_u64())
 
     alphas = challenger.get_n_challenges(config.num_challenges)
@@ -191,11 +236,17 @@ def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
         qvals = quotient_values(
             stark, degree_bits, trace_commitment.coeffs,
             aux_commitment.coeffs, alphas, num_lookup_columns,
-            ctl_structure, challenges, publics)
+            ctl_structure, challenges, publics, comm,
+            (trace_commitment.col_counts, aux_commitment.col_counts))
 
     with step(timer, "quotient_commit"):
+        quot_counts = None
+        if comm is not None:
+            quot_counts = [2 * c for c in split_counts(len(qvals),
+                                                       comm.size)]
         quotient_commitment = PolynomialBatch.from_coeffs(
-            quotient_chunks(qvals, n), rate_bits, cap_height, device=device)
+            quotient_chunks(qvals, n, comm), rate_bits, cap_height,
+            device=device, mesh=mesh, col_counts=quot_counts)
         challenger.observe_cap(quotient_commitment.cap_u64())
 
     zeta = challenger.get_extension_challenge()
@@ -213,7 +264,10 @@ def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
               (aux_commitment.coeffs, zeta),
               (aux_commitment.coeffs, zeta_next),
               (quotient_commitment.coeffs, zeta)],
-             extra=[gl.sum_axis(aux_commitment.coeffs, -1)])
+             extra=[gl.sum_axis(aux_commitment.coeffs, -1)], comm=comm,
+             counts=[trace_commitment.col_counts] * 2
+             + [aux_commitment.col_counts] * 2
+             + [quotient_commitment.col_counts, aux_commitment.col_counts])
     total_helpers = sum(ctl_data.num_ctl_helper_polys())
     ctl_zs_first = aux_at_one[num_lookup_columns + total_helpers:]
 
@@ -226,9 +280,9 @@ def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
         for c0, c1 in batch_vals:
             challenger.observe_extension((int(c0), int(c1)))
 
-    num_columns = trace_commitment.coeffs.shape[0]
-    num_aux = aux_commitment.coeffs.shape[0]
-    num_quot = quotient_commitment.coeffs.shape[0]
+    num_columns = trace_commitment.num_polys
+    num_aux = aux_commitment.num_polys
+    num_quot = quotient_commitment.num_polys
     batches = [
         fri_oracle.OpeningBatch(point=zeta, ranges=(
             fri_oracle.PolyRange(0, 0, num_columns),
@@ -244,7 +298,7 @@ def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
     oracles = [trace_commitment, aux_commitment, quotient_commitment]
     opening_proof = fri_oracle.open_and_prove(
         batches, openings.fri_batches(), oracles, challenger,
-        config.fri_config, timer)
+        config.fri_config, timer, comm)
 
     proof = StarkProof(
         trace_cap=trace_commitment.cap_u64(),
@@ -256,25 +310,59 @@ def prove_single_table(stark, config: StarkConfig, trace_values: torch.Tensor,
         degree_bits=degree_bits)
 
 
+def _tp_blocks(traces, mesh):
+    """Each whole trace -> (this rank's column shard, its block of rows
+    plus the next row), on the mesh's device."""
+    tp = mesh.tp_comm.size
+    shards, rows = [], []
+    for t in traces:
+        n = t.shape[-1]
+        if n % tp:
+            raise ValueError(f"a table of {n} rows does not split over "
+                             f"tp={tp}: heights must be divisible by tp")
+        b = n // tp
+        idx = torch.arange(mesh.tp_index * b, (mesh.tp_index + 1) * b + 1,
+                           device=t.device) % n
+        shards.append(t[mesh.tp_block(t.shape[0])].to(mesh.device))
+        rows.append(t[:, idx].to(mesh.device))
+    return shards, rows
+
+
 def prove_with_traces(starks: Sequence, config: StarkConfig,
                       traces: Sequence[torch.Tensor], ctls,
                       public_values: PublicValues, device=None,
-                      timer=None, debug: bool = False) -> AllProof:
+                      timer=None, debug: bool = False,
+                      mesh=None) -> AllProof:
     """traces[t]: (C_t, N_t) int64 trace values of table t.
 
     Runs on the card unless device='cpu' (raises without a card).  `timer`
     (a utils.timing.StepTimer) collects per-step seconds; `debug` checks
-    each table's constraints on H before its quotient."""
-    dev = resolve_device(device)
-    traces = [t.to(dev) for t in traces]
+    each table's constraints on H before its quotient.  With a tp `mesh`
+    (parallel/sharding.py) the proof is spread over its tp group and runs
+    on the mesh's device: every rank passes the same whole traces (every
+    height divisible by tp) and gets the same proof."""
+    comm = tp_group(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     rate_bits = config.fri_config.rate_bits
     cap_height = config.fri_config.cap_height
+    if comm is None:
+        traces = rows = [t.to(dev) for t in traces]
+        counts = [None] * len(traces)
+    else:
+        if debug:
+            raise ValueError("debug=True checks whole traces: prove it "
+                             "without a mesh")
+        traces, rows = _tp_blocks(traces, mesh)
+        counts = [split_counts(t.shape[0], comm.size)
+                  for t in rows]
 
     with step(timer, "trace_commit"):
         trace_commitments = [
-            PolynomialBatch.from_values(t, rate_bits, cap_height, device=dev)
-            for t in traces]
+            PolynomialBatch.from_values(t, rate_bits, cap_height, device=dev,
+                                        mesh=mesh, col_counts=c)
+            for t, c in zip(traces, counts)]
         caps = [c.cap_u64() for c in trace_commitments]
+    traces = rows
     challenger = Challenger()
     for cap in caps:
         challenger.observe_cap(cap)
@@ -284,7 +372,7 @@ def prove_with_traces(starks: Sequence, config: StarkConfig,
         challenger, config.num_challenges)
     with step(timer, "ctl"):
         ctl_data_per_table = cross_table_lookup_data(
-            traces, ctls, ctl_challenges, 3)
+            traces, ctls, ctl_challenges, 3, comm)
 
     proofs = []
     for i, (stark, commitment) in enumerate(zip(starks, trace_commitments)):
@@ -292,7 +380,7 @@ def prove_with_traces(starks: Sequence, config: StarkConfig,
             stark, config, traces[i], commitment, ctl_data_per_table[i],
             ctl_challenges, challenger,
             publics=public_inputs_of(stark, public_values), timer=timer,
-            debug=debug))
+            debug=debug, mesh=mesh))
         # this table's commitment, trace and CTL columns are dead now:
         # free them before the next table commits its oracles
         commitment.release()
